@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the main path from ``odc_tpu_torch/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the card,
-then runs the main path — YOLOv2-416 bf16 end-to-end inference through
-``make_infer_fn`` (fused superstem -> Darknet-19 -> neck -> head -> decode
--> NMS) — on a few batches, checking that both kernels launched once per
-call and that the outputs agree with the unfused model.  Prints the card's
-name and power limit, one ``{"kernels": [...]}`` line with each kernel's
-launches, error and times, and as its last line
+Builds every CUDA kernel of the ported paths from ``odc_tpu_torch/csrc``
+with ``nvcc``, holds each kernel against its plain PyTorch version on the
+card, then drives the two main paths, each with the launch counts set to 0
+just before and read just after:
+
+* serving — YOLOv2-416 bf16 end-to-end inference through ``make_infer_fn``
+  (fused superstem -> Darknet-19 -> neck -> head -> decode -> NMS) on a few
+  batches, checking that both kernels launched once per call and that the
+  outputs agree with the unfused model;
+* training — YOLOv2-416 bf16 at batch 32 through ``Trainer.fit`` with
+  in-step device augmentation (warp kernel -> color -> box transform ->
+  assign -> forward with batch-statistics BN -> loss -> backward -> SGD),
+  two epochs of four steps on an in-memory synthetic dataset, checking that
+  the warp kernel launched once per step, that the state moved, and that
+  the checkpoint restores it.
+
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+with each kernel's launches, error and times, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
-card is present or any phase fails.  Weights are random, from fixed seeds.
+card is present or any phase fails.  Weights and data are random, from
+fixed seeds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 import torch
 
@@ -33,6 +50,11 @@ BATCH = 64
 MAX_KEEP = 64
 N_CAND = 13 * 13 * 5
 TIMED_CALLS = 20
+# Training path: batch 32, 128 train and 32 val images, 2 epochs of 4 steps.
+TRAIN_BATCH = 32
+TRAIN_IMAGES, VAL_IMAGES = 128, 32
+TRAIN_EPOCHS = 2
+TIMED_STEPS = 12
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and f32 CUDA-core FLOP/s.
@@ -368,7 +390,7 @@ def phase_e2e():
           f"{len(call_ms)}) -> {img_s:.1f} img/s")
 
     _layer_breakdown(model, infer, requests[1])
-    _profile(infer, requests[1])
+    _profile(lambda: infer(requests[1]))
 
     # Head output: fused stem vs plain stem on the same bf16 model.  Bound:
     # the model's own bf16 rounding noise n = max |y_bf16 - y_f32| (plain
@@ -457,15 +479,16 @@ def _layer_breakdown(model, infer, images, iters: int = 10):
               f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in totals.items()))
 
 
-def _profile(infer, images, calls: int = 3):
-    """torch.profiler over a few calls: device busy share and the kernels
-    that take the most device time."""
+def _profile(fn, calls: int = 3, also=()):
+    """torch.profiler over a few calls of ``fn()``: device busy share, the
+    kernels that take the most device time, and any kernel whose name
+    contains one of ``also``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(calls):
-            infer(images)
+            fn()
         sync()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
@@ -480,8 +503,351 @@ def _profile(infer, images, calls: int = 3):
         return
     print(f"profiler, {calls} calls: device busy {busy:.3f} of {wall_ms:.3f} "
           f"ms wall ({100 * busy / wall_ms:.1f}%); top kernels, ms per call:")
-    for ms, key, n in sorted(rows, reverse=True)[:12]:
-        print(f"  {ms:8.3f}  x{n:<4d} {key[:90]}")
+    ranked = sorted(rows, reverse=True)
+    for i, (ms, key, n) in enumerate(ranked):
+        if i < 12 or any(name in key for name in also):
+            print(f"  {ms:8.3f}  x{n:<4d} {key[:90]}")
+
+
+def _inverse_maps(hw, specs):
+    """Inverse maps [N, 3, 3] f32 for ``specs``, dicts of scale, tx, ty
+    (pixels), theta (degrees), fx, fy (flip signs): the augmentation's
+    matrix family, inverted in float64."""
+    from odc_tpu_torch.ops.augment import affine_matrices
+
+    def col(key, default):
+        return torch.tensor([float(sp.get(key, default)) for sp in specs],
+                            dtype=torch.float64)
+
+    ms = affine_matrices(
+        col("scale", 1.0), col("tx", 0.0), col("ty", 0.0),
+        torch.deg2rad(col("theta", 0.0)), col("fx", 1.0), col("fy", 1.0), hw,
+    )
+    return torch.linalg.inv(ms).float().contiguous()
+
+
+def phase_warp():
+    """Kernel vs plain two-pass warp on the card: the augmentation's corner
+    cases at the training shape and at odd sizes, then a sampled batch of
+    32 at 416x416, which is also the timed shape."""
+    import torch.nn.functional as F
+
+    from odc_tpu_torch.ops.augment import (
+        AugmentConfig, sample_augment_params, warp_max_shear,
+    )
+    from odc_tpu_torch.ops.cuda.warp_kernel import warp_affine, warp_affine_plain
+
+    cfg = AugmentConfig()
+    max_shear = warp_max_shear(cfg)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    tol = 1e-3  # on 0..255: order of the final blends only (see the .cu)
+    worst = 0.0
+    for h, w in (HW, (30, 45), (100, 132)):
+        specs = [dict(), dict(fx=-1), dict(fy=-1)]
+        specs += [dict(theta=t, scale=sc) for t in (45, -45) for sc in (0.8, 1.2)]
+        specs += [dict(tx=0.2 * w, ty=-0.2 * h), dict(tx=-0.2 * w, ty=0.2 * h)]
+        m_invs = _inverse_maps((h, w), specs).to(DEVICE)
+        # Pixels in 1..255: a zero in the output is zero fill.
+        images = torch.randint(1, 256, (len(specs), h, w, 3), generator=gen)
+        images = images.float().to(DEVICE)
+        got = warp_affine(images, m_invs, max_shear)
+        ref = warp_affine_plain(images, m_invs, max_shear)
+        sync()
+        errs = (got - ref).abs().amax(dim=(1, 2, 3)).tolist()
+        if got.shape != ref.shape or not max(errs) <= tol:
+            raise AssertionError(f"warp {h}x{w}: max |kernel - plain| {errs}")
+        if not torch.equal(got[:3], ref[:3]):
+            raise AssertionError(f"warp {h}x{w}: identity/flips not exact")
+        # Content moved right by 20% and up by 20%: the vacated left band
+        # and bottom band are exactly zero, the rest is not.
+        band_x, band_y = int(0.2 * w) - 1, h - int(0.2 * h) + 1
+        moved = got[7]
+        if bool((moved[:, :band_x] != 0).any()) or bool((moved[band_y:] != 0).any()):
+            raise AssertionError(f"warp {h}x{w}: vacated region not zero")
+        if not bool((moved[: band_y - 2, band_x + 2:] != 0).all()):
+            raise AssertionError(f"warp {h}x{w}: kept region holds zeros")
+        same_fill = torch.equal(got == 0, ref == 0)
+        print(f"warp {len(specs)}x{h}x{w} (identity, flips, +-45 deg at 0.8 "
+              f"and 1.2, +-20% shifts): max |kernel - plain| "
+              f"{max(errs):.3e} (bound {tol}), zero-fill masks identical: "
+              f"{same_fill}")
+        worst = max(worst, max(errs))
+
+    h, w = HW
+    dgen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    params = sample_augment_params(dgen, TRAIN_BATCH, cfg, HW, DEVICE)
+    m_invs = torch.linalg.inv(params.ms.double().cpu()).float().contiguous()
+    m_invs = m_invs.to(DEVICE)
+    images = torch.randint(0, 256, (TRAIN_BATCH, h, w, 3), generator=gen)
+    images = images.float().to(DEVICE)
+    got = warp_affine(images, m_invs, max_shear)
+    ref = warp_affine_plain(images, m_invs, max_shear)
+    sync()
+    err = float((got - ref).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"warp sampled batch: max |kernel - plain| {err}")
+    worst = max(worst, err)
+    print(f"warp sampled batch {TRAIN_BATCH}x{h}x{w}: max |kernel - plain| "
+          f"{err:.3e} (bound {tol})")
+
+    call_ms = time_ms(lambda: warp_affine(images, m_invs, max_shear), 50)
+    ms = graph_ms(lambda: warp_affine(images, m_invs, max_shear), 20)
+    plain_ms = time_ms(lambda: warp_affine_plain(images, m_invs, max_shear), 5)
+    # Context only, a DIFFERENT function: the one-shot bilinear warp.
+    theta = torch.stack([
+        m_invs[:, 0, :2].flatten(1), m_invs[:, 1, :2].flatten(1)], 1)
+    theta = torch.cat([theta, torch.zeros(TRAIN_BATCH, 2, 1, device=DEVICE)], 2)
+    nchw = images.permute(0, 3, 1, 2).contiguous()
+    oneshot_ms = time_ms(lambda: F.grid_sample(
+        nchw, F.affine_grid(theta, nchw.shape, align_corners=False),
+        mode="bilinear", padding_mode="zeros", align_corners=False), 20)
+    pixels = TRAIN_BATCH * h * w
+    nbytes = 2 * pixels * 3 * 4 + m_invs.numel() * 4
+    flops = pixels * (36 * 3 + 40)
+    bms, by = bound_ms(nbytes, flops, F32_FLOPS)
+    print(f"warp B={TRAIN_BATCH} {h}x{w}x3 f32, max_shear {max_shear:.3f}: "
+          f"kernel in a CUDA graph {ms:.4f} ms, per "
+          f"call from Python {call_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP); for context, a different function (one-shot bilinear, "
+          f"F.affine_grid + F.grid_sample): {oneshot_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": worst, "library_ms": None}
+
+
+class _RectanglesOnNoise:
+    """In-memory dataset in the layout of ``VOCDataset`` items: solid
+    class-colored rectangles on noise, the recipe of
+    ``odc_tpu_torch.data.voc.make_synthetic_voc`` without the JPEG step,
+    already at the network size."""
+
+    def __init__(self, count: int, hw, seed: int):
+        from odc_tpu_torch.data.voc import CLASS_LIST
+
+        rng = np.random.default_rng(seed)
+        h, w = hw
+        levels = [110, 160, 210]
+        grid = np.stack(np.meshgrid(levels, levels, levels), -1).reshape(-1, 3)
+        palette = grid[
+            np.linspace(0, len(grid) - 1, len(CLASS_LIST)).astype(int)]
+        self.items = []
+        for _ in range(count):
+            img = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
+            boxes, labels = [], []
+            for _ in range(int(rng.integers(1, 4))):
+                bw = int(rng.integers(40, w // 2))
+                bh = int(rng.integers(40, h // 2))
+                x1 = int(rng.integers(0, w - bw))
+                y1 = int(rng.integers(0, h - bh))
+                cls_idx = int(rng.integers(0, len(CLASS_LIST)))
+                img[y1:y1 + bh, x1:x1 + bw] = np.clip(
+                    palette[cls_idx] + rng.integers(-20, 21, 3), 0, 255)
+                boxes.append([x1, y1, x1 + bw, y1 + bh])
+                labels.append(CLASS_LIST[cls_idx])
+            self.items.append((img, {"bbox_list": boxes, "lbl_list": labels}))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        img, annot = self.items[index]
+        return index, img, annot
+
+
+@contextlib.contextmanager
+def _count_plain_warps(calls: list):
+    """Count calls of the plain two-pass warp, through both names the
+    training path could reach it by."""
+    from odc_tpu_torch.ops import warp
+    from odc_tpu_torch.ops.cuda import warp_kernel
+
+    real = warp.warp_affine_twopass
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    warp.warp_affine_twopass = warp_kernel.warp_affine_twopass = counted
+    try:
+        yield
+    finally:
+        warp.warp_affine_twopass = warp_kernel.warp_affine_twopass = real
+
+
+def _state_tensors(state):
+    sd = state.state_dict()
+    out = {f"model.{k}": v for k, v in sd["model"].items()}
+    out.update({f"momentum.{k}": v for k, v in sd["momentum"].items()})
+    return out
+
+
+def phase_train(counters):
+    """The training path: YOLOv2-416 bf16 at batch 32 through Trainer.fit
+    with in-step device augmentation; ``counters`` are the wrappers whose
+    launch counts are zeroed just before ``fit`` and read just after."""
+    from odc_tpu_torch.config import TrainConfig
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.prefetch import device_prefetch
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops.augment import (
+        AugmentConfig, apply_augment, sample_augment_params,
+    )
+    from odc_tpu_torch.train import checkpoint
+    from odc_tpu_torch.train.trainer import (
+        Trainer, TrainState, make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    train_set = _RectanglesOnNoise(TRAIN_IMAGES, HW, SEED + 7)
+    val_set = _RectanglesOnNoise(VAL_IMAGES, HW, SEED + 8)
+    # The static 416x416 size: no multi-scale re-targeting.
+    config = TrainConfig(
+        learning_rate_list=[1e-3], num_epoch_list=[TRAIN_EPOCHS],
+        batch_size=TRAIN_BATCH, momentum=0.9, multiscale_sizes=(), seed=SEED,
+    )
+    train_pipe = DetectionPipeline(
+        train_set, HW, TRAIN_BATCH, config.max_boxes, seed=SEED)
+    val_pipe = DetectionPipeline(
+        val_set, HW, TRAIN_BATCH, config.max_boxes, shuffle=False,
+        drop_remainder=False)
+    model = YOLOv2(dtype=torch.bfloat16, device=DEVICE, seed=SEED)
+    steps = TRAIN_EPOCHS * len(train_pipe)
+    print(f"datasets and model built in {time.perf_counter() - t0:.1f} s; "
+          f"{steps} steps of batch {TRAIN_BATCH}")
+
+    with tempfile.TemporaryDirectory() as ckpt_path:
+        trainer = Trainer(model, train_pipe, val_pipe, config, ckpt_path,
+                          augment_cfg=AugmentConfig())
+        state = trainer.init_state()
+        before = {k: v.clone() for k, v in _state_tensors(state).items()}
+        plain_calls: list = []
+        torch.cuda.reset_peak_memory_stats()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t = time.perf_counter()
+        with _count_plain_warps(plain_calls):
+            state, history = trainer.fit(state)
+        sync()
+        fit_s = time.perf_counter() - t
+        launches = {name: w.launches for name, w in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"main path (training): fit took {fit_s:.2f} s for {steps} "
+              f"train steps and {TRAIN_EPOCHS} val epochs, launches "
+              f"{launches}, plain warps {len(plain_calls)}, peak device "
+              f"memory {peak_gb:.2f} GB")
+        if launches["warp_affine"] != steps or plain_calls:
+            raise AssertionError(
+                "the warp kernel must launch once per train step and the "
+                "plain warp never")
+        losses = history["train_loss_mean_list"] + history["val_loss_list"]
+        print(f"train loss per epoch {history['train_loss_mean_list']}, val "
+              f"{history['val_loss_list']}")
+        if len(losses) != 2 * TRAIN_EPOCHS or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite or missing losses: {history}")
+        if state.step != steps:
+            raise AssertionError(f"step {state.step} != {steps}")
+
+        after = _state_tensors(state)
+        moved = {kind: 0 for kind in ("param", "momentum", "bn stat")}
+        for name, old in before.items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            kind = ("momentum" if name.startswith("momentum.") else
+                    "bn stat" if ".running_" in name else "param")
+            if not bool(torch.isfinite(after[name]).all()):
+                raise AssertionError(f"{name} is not finite after training")
+            if torch.equal(old, after[name]):
+                raise AssertionError(f"{name} did not change in training")
+            moved[kind] += 1
+        print(f"state moved and finite: {moved}")
+
+        for fname in ("train_config.json", "metrics.jsonl",
+                      "training_result.pkl", "best_model.ckpt",
+                      "final_model.ckpt"):
+            if not os.path.exists(os.path.join(ckpt_path, fname)):
+                raise AssertionError(f"artifact {fname} missing")
+        other = TrainState(
+            YOLOv2(dtype=torch.bfloat16, device=DEVICE, seed=SEED + 1))
+        checkpoint.restore(os.path.join(ckpt_path, "final_model.ckpt"), other)
+        restored = _state_tensors(other)
+        if other.step != state.step or not all(
+                torch.equal(after[k], restored[k]) for k in after):
+            raise AssertionError("restore did not reproduce the train state")
+        with open(os.path.join(ckpt_path, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        fit_rates = [r["images_per_sec"] for r in rows
+                     if r["kind"] == "train_epoch"]
+        print(f"artifacts written, restore reproduces the state; "
+              f"Trainer's own img/s per epoch (pipeline and copies "
+              f"included, first epoch with warm-up): "
+              f"{[round(x, 1) for x in fit_rates]}")
+
+    batches = device_prefetch(train_pipe, DEVICE)
+    batch = next(batches)
+    batches.close()  # stops the pipeline's prefetch thread
+    # One step's augmented batch: kernel vs plain two-pass warp.
+    cfg = AugmentConfig()
+    params = sample_augment_params(
+        trainer.generator, TRAIN_BATCH, cfg, HW, DEVICE)
+    img_k, box_k, val_k = apply_augment(
+        batch.image, batch.box, batch.valid, params, cfg, "kernel")
+    img_p, box_p, val_p = apply_augment(
+        batch.image, batch.box, batch.valid, params, cfg, "twopass")
+    diff = (img_k.int() - img_p.int()).abs()
+    share = float((diff != 0).float().mean())
+    print(f"augmented uint8 batch, kernel vs plain warp: max level "
+          f"difference {int(diff.max())}, differing pixels {share:.2e} of "
+          f"{diff.numel()}; boxes and validity equal: "
+          f"{torch.equal(box_k, box_p) and torch.equal(val_k, val_p)}")
+    if int(diff.max()) > 1 or not torch.equal(box_k, box_p):
+        raise AssertionError("augmented batch differs by more than 1 level")
+
+    # Steady-state step time on a resident batch, host clock, synchronised.
+    step_ms = []
+    for i in range(3 + TIMED_STEPS):
+        t = time.perf_counter()
+        trainer.train_step(state, batch, 1e-3, trainer.generator)
+        sync()
+        if i >= 3:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(step_ms)
+    q = statistics.quantiles(step_ms, n=4)
+    img_s = TRAIN_BATCH / med * 1e3
+    print(f"YOLOv2-416 bf16 train step, batch {TRAIN_BATCH}, batch on the "
+          f"card: median {med:.3f} ms/step (quartiles {q[0]:.3f} / "
+          f"{q[2]:.3f}, n={len(step_ms)}) -> {img_s:.1f} img/s")
+
+    # Device time per part of the step, CUDA events at the step's marks.
+    marks = []
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    marked_step = make_train_step(
+        trainer.mode, trainer.lambdas, trainer.anchors,
+        momentum=config.momentum, weight_decay=config.weight_decay,
+        augment_cfg=cfg, on_phase=on_phase)
+    totals, iters = {}, 5
+    for it in range(iters + 1):
+        marks.clear()
+        on_phase("start")
+        marked_step(state, batch, 1e-3, trainer.generator)
+        sync()
+        if it == 0:
+            continue
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            totals[name] = totals.get(name, 0.0) + a.elapsed_time(b) / iters
+    total = sum(totals.values())
+    print(f"train step breakdown, device ms per step (CUDA events, {iters} "
+          f"steps): " + ", ".join(
+              f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in totals.items())
+          + f"; sum {total:.3f}")
+    _profile(lambda: trainer.train_step(state, batch, 1e-3, trainer.generator),
+             also=("warp_affine",))
+    return launches, img_s
 
 
 def main() -> int:
@@ -489,6 +855,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import odc_tpu_torch.ops.detect  # noqa: F401  (fails outside the repo)
+    from odc_tpu_torch.ops.cuda.nms_kernel import suppress
+    from odc_tpu_torch.ops.cuda.superstem_kernel import superstem
+    from odc_tpu_torch.ops.cuda.warp_kernel import warp_affine
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -500,18 +869,28 @@ def main() -> int:
     phase_build()
     nms = phase_nms()
     stem = phase_superstem()
+    warp = phase_warp()
     launches, img_s = phase_e2e()
+    train_launches, train_img_s = phase_train({
+        "nms_suppress": suppress, "superstem": superstem,
+        "warp_affine": warp_affine})
+    # Each kernel's launches are those of the main path that runs it.
     kernels = [
         dict(name="nms_suppress", route="cuda",
              source="odc_tpu_torch/csrc/nms_suppress.cu",
-             replaces="odc_tpu/ops/pallas/nms_kernel.py:80",
+             replaces="odc_tpu/ops/pallas/nms_kernel.py:100",
              launches=launches["nms_suppress"], **nms),
         dict(name="superstem", route="cuda",
              source="odc_tpu_torch/csrc/superstem.cu",
-             replaces="odc_tpu/ops/pallas/superstem_kernel.py:256",
+             replaces="odc_tpu/ops/pallas/superstem_kernel.py:270",
              launches=launches["superstem"], **stem),
+        dict(name="warp_affine", route="cuda",
+             source="odc_tpu_torch/csrc/warp_affine.cu",
+             replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
+             launches=train_launches["warp_affine"], **warp),
     ]
-    print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s")
+    print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
+          f"train {train_img_s:.1f} img/s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

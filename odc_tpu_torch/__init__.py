@@ -11,8 +11,14 @@ CUDA kernel here (``csrc/``), built with ``nvcc`` at first use
 function.  A wrapper runs the plain version for CPU tensors and the kernel
 for CUDA tensors; it never falls back from one to the other.
 
-Entry points (model constructors) default to ``device="cuda"`` and raise
-when no card is present; the CPU runs only when the caller asks for it.
+Ported so far: YOLOv2 inference (``ops/detect.py::make_infer_fn``) and
+YOLOv2 training with in-step device augmentation (``train/``, ``python -m
+odc_tpu_torch.train``), with the data path, the loss and the checkpoints
+they need.
+
+Entry points (model constructors, the training command line) default to
+``device="cuda"`` and raise when no card is present; the CPU runs only when
+the caller asks for it.
 """
 
 from __future__ import annotations

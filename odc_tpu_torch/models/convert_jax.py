@@ -7,8 +7,9 @@ The inverse of ``odc_tpu/models/convert_torch.py``'s layout:
   ``weight``/``bias``/``running_mean``/``running_var``.
 
 The flax side is a ``variables`` tree already turned into nested dicts of
-numpy arrays (``{"params": ..., "batch_stats": ...}``); this module imports
-neither JAX nor flax.  Paths: ``Darknet19Backbone_0/stage{k}/ConvBnLeaky_{i}``
+numpy arrays (``{"params": ..., "batch_stats": ...}``); a whole train state
+adds ``momentum`` (same layout as ``params``) and ``step``.  This module
+imports neither JAX nor flax.  Paths: ``Darknet19Backbone_0/stage{k}/ConvBnLeaky_{i}``
 (backbone), ``ConvBnLeaky_0`` (the 3x3 neck conv), ``Conv_0`` (the head).
 """
 
@@ -43,36 +44,33 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
-def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
-    """flax YOLOv2 variables (numpy leaves) -> the port's ``YOLOv2``
-    ``state_dict`` (CPU float32 tensors)."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd = {}
+def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A flax YOLOv2 ``params``-shaped tree (the parameters themselves, or
+    the momentum tree, which has the same layout) -> ``{parameter name:
+    CPU float32 tensor}`` in the port's names."""
+    out = {}
     for path, prefix in _blocks():
-        p, s = _at(params, path), _at(stats, path)
-        sd[f"{prefix}.conv.weight"] = _t(p["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
-        sd[f"{prefix}.conv.bias"] = _t(p["Conv_0"]["bias"])
-        sd[f"{prefix}.bn.weight"] = _t(p["BatchNorm_0"]["scale"])
-        sd[f"{prefix}.bn.bias"] = _t(p["BatchNorm_0"]["bias"])
-        sd[f"{prefix}.bn.running_mean"] = _t(s["BatchNorm_0"]["mean"])
-        sd[f"{prefix}.bn.running_var"] = _t(s["BatchNorm_0"]["var"])
-    sd["head.weight"] = _t(params["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
-    sd["head.bias"] = _t(params["Conv_0"]["bias"])
-    return sd
+        p = _at(params, path)
+        out[f"{prefix}.conv.weight"] = _t(p["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
+        out[f"{prefix}.conv.bias"] = _t(p["Conv_0"]["bias"])
+        out[f"{prefix}.bn.weight"] = _t(p["BatchNorm_0"]["scale"])
+        out[f"{prefix}.bn.bias"] = _t(p["BatchNorm_0"]["bias"])
+    out["head.weight"] = _t(params["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
+    out["head.bias"] = _t(params["Conv_0"]["bias"])
+    return out
 
 
-def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict:
-    """The inverse: a ``YOLOv2`` ``state_dict`` -> flax variables tree with
-    numpy leaves."""
+def jax_params_from(named: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`params_from_jax`: numpy leaves in the flax
+    ``params`` layout (other entries of ``named`` are ignored)."""
     def a(name):
-        return sd[name].detach().cpu().float().numpy().copy()
+        return named[name].detach().cpu().float().numpy().copy()
 
     params: Dict = {}
-    stats: Dict = {}
     for path, prefix in _blocks():
-        p, s = params, stats
+        p = params
         for key in path:
-            p, s = p.setdefault(key, {}), s.setdefault(key, {})
+            p = p.setdefault(key, {})
         p["Conv_0"] = {
             "kernel": a(f"{prefix}.conv.weight").transpose(2, 3, 1, 0),
             "bias": a(f"{prefix}.conv.bias"),
@@ -81,15 +79,57 @@ def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict:
             "scale": a(f"{prefix}.bn.weight"),
             "bias": a(f"{prefix}.bn.bias"),
         }
-        s["BatchNorm_0"] = {
-            "mean": a(f"{prefix}.bn.running_mean"),
-            "var": a(f"{prefix}.bn.running_var"),
-        }
     params["Conv_0"] = {
         "kernel": a("head.weight").transpose(2, 3, 1, 0),
         "bias": a("head.bias"),
     }
-    return {"params": params, "batch_stats": stats}
+    return params
+
+
+def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax YOLOv2 variables (numpy leaves) -> the port's ``YOLOv2``
+    ``state_dict`` (CPU float32 tensors)."""
+    sd = params_from_jax(variables["params"])
+    for path, prefix in _blocks():
+        s = _at(variables["batch_stats"], path)
+        sd[f"{prefix}.bn.running_mean"] = _t(s["BatchNorm_0"]["mean"])
+        sd[f"{prefix}.bn.running_var"] = _t(s["BatchNorm_0"]["var"])
+    return sd
+
+
+def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse: a ``YOLOv2`` ``state_dict`` -> flax variables tree with
+    numpy leaves."""
+    stats: Dict = {}
+    for path, prefix in _blocks():
+        s = stats
+        for key in path:
+            s = s.setdefault(key, {})
+        s["BatchNorm_0"] = {
+            "mean": sd[f"{prefix}.bn.running_mean"].detach().cpu().float().numpy().copy(),
+            "var": sd[f"{prefix}.bn.running_var"].detach().cpu().float().numpy().copy(),
+        }
+    return {"params": jax_params_from(sd), "batch_stats": stats}
+
+
+def train_state_from_jax(tree: Dict) -> Dict:
+    """A JAX ``TrainState`` as a numpy tree (``params``, ``batch_stats``,
+    ``momentum``, ``step``) -> the port's ``TrainState.state_dict()``
+    layout (``model``, ``momentum``, ``step``)."""
+    return {
+        "model": state_dict_from_jax(tree),
+        "momentum": params_from_jax(tree["momentum"]),
+        "step": int(tree["step"]),
+    }
+
+
+def jax_from_train_state(sd: Dict) -> Dict:
+    """The inverse: ``TrainState.state_dict()`` -> numpy tree with the JAX
+    ``TrainState``'s fields."""
+    tree = jax_from_state_dict(sd["model"])
+    tree["momentum"] = jax_params_from(sd["momentum"])
+    tree["step"] = np.asarray(sd["step"], np.int32)
+    return tree
 
 
 def load_jax_yolov2(model, variables: Dict):

@@ -31,31 +31,44 @@ def imagenet_normalize(
 
 
 class TorchBatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) dim, in float32:
+    """BatchNorm over the last (channel) dim, in float32, with
+    ``torch.nn.BatchNorm2d``'s running-statistics semantics:
     ``(x - mean) * rsqrt(var + eps) * weight + bias``.
 
-    Parameter names are ``torch.nn.BatchNorm2d``'s (``weight``, ``bias``,
-    ``running_mean``, ``running_var``).  The training path — batch
-    statistics and the unbiased running-variance update — is not ported
-    yet; calling the module in training mode raises."""
+    In eval mode ``mean``/``var`` are the running statistics.  In training
+    mode they are the batch mean and the **biased** batch variance over
+    N, H, W, and the running statistics move towards the batch mean and the
+    **unbiased** variance (``n / max(n - 1, 1)``) with decay ``decay``
+    (0.9, i.e. ``BatchNorm2d(momentum=0.1)``).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    Parameter names are ``torch.nn.BatchNorm2d``'s (``weight``, ``bias``,
+    ``running_mean``, ``running_var``)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, decay: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.decay = decay
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "batch-statistics BatchNorm (training) is not ported yet; "
-                "call .eval()"
-            )
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps
-        )
+            axes = tuple(range(x.dim() - 1))
+            var, mean = torch.var_mean(xf, dim=axes, correction=0)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                self.running_mean.mul_(self.decay).add_(
+                    mean, alpha=1.0 - self.decay
+                )
+                self.running_var.mul_(self.decay).add_(
+                    var, alpha=(1.0 - self.decay) * (n / max(n - 1, 1))
+                )
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 

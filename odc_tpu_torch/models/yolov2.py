@@ -39,11 +39,12 @@ def space_to_depth(h1: torch.Tensor) -> torch.Tensor:
 
 
 class YOLOv2(nn.Module):
-    """YOLOv2 for inference.  Parameters are float32, drawn from a
-    ``torch.Generator`` seeded with ``seed`` (PyTorch's default Conv2d init,
-    BN at identity), built on the CPU and moved to ``device``; convolutions
-    run in ``dtype``.  ``device`` defaults to ``"cuda"`` and raises if no
-    card is present."""
+    """YOLOv2, for inference (``.eval()``: running BN statistics, optional
+    fused stem) and for training (``.train()``: batch BN statistics, the
+    unfused stem).  Parameters are float32, drawn from a ``torch.Generator``
+    seeded with ``seed`` (PyTorch's default Conv2d init, BN at identity),
+    built on the CPU and moved to ``device``; convolutions run in ``dtype``.
+    ``device`` defaults to ``"cuda"`` and raises if no card is present."""
 
     def __init__(
         self,

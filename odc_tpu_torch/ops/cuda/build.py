@@ -24,9 +24,12 @@ BUILD_DIR = _PKG.parent / "build" / "cuda"
 # name -> (source, extra nvcc flags).  ``-fmad=false`` keeps the NMS IoU
 # bitwise equal to the plain PyTorch version: a contracted a*b+c rounds once
 # where PyTorch rounds twice, and an IoU exactly at the threshold would flip.
+# The warp takes it for its sample positions (slope*o + offset), whose last
+# bit decides tap fractions on images with steep steps.
 SOURCES: Dict[str, tuple] = {
     "nms_suppress": ("nms_suppress.cu", ["-fmad=false"]),
     "superstem": ("superstem.cu", []),
+    "warp_affine": ("warp_affine.cu", ["-fmad=false"]),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,6 +42,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "superstem": {
         "superstem_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
         "superstem_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "warp_affine": {
+        "warp_affine": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

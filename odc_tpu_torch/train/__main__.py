@@ -1,0 +1,174 @@
+"""Training entry point of the port, the counterpart of the JAX package's
+root ``train.py`` with its flag names.
+
+Builds ``ckpts/<model>/<timestamp>``, constructs the VOC dataset, the model
+and the pipelines, and runs the staged training schedule on ``--device``
+(default ``cuda``; there is no silent move to the CPU).
+
+    python -m odc_tpu_torch.train --dataset-dir datasets --augment device
+    python -m odc_tpu_torch.train --device cpu --synthetic --epochs 1 \\
+        --batch-size 4 --image-size 64          # smoke run without a card
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+
+_LATER = {
+    "eval_map": "--eval-map (VOC mAP after training) comes with the eval "
+    "slice of the port",
+    "eval_map_every": "--eval-map-every comes with the eval slice of the port",
+    "qat": "--qat comes with the int8 slice of the port",
+    "data_parallel": "--data-parallel comes with the data-parallel slice of "
+    "the port",
+    "model_parallel": "--model-parallel comes with the data-parallel slice "
+    "of the port",
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m odc_tpu_torch.train", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    p.add_argument("--model", default="YOLOv2",
+                   choices=["YOLOv1", "YOLOv2", "YOLOv3"])
+    p.add_argument("--dataset-dir", default="datasets")
+    p.add_argument("--ckpt-root", default="ckpts")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None,
+                   help="override: single stage of N epochs")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--image-size", type=int, default=None,
+                   help="square input-size override, multiple of 32 "
+                   "(default: the model config's 416)")
+    p.add_argument("--no-augment", action="store_true",
+                   help="shorthand for --augment none")
+    p.add_argument(
+        "--augment", default="device", choices=["host", "device", "none"],
+        help="device: in-step augmentation on the training device "
+        "(default). none: disable. host: not ported yet.",
+    )
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on; 'cpu' for smoke runs")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate and train on a tiny synthetic VOC")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint path to resume from")
+    # Flags of paths that are not ported yet: accepted so that a command
+    # line written for the JAX package fails with a clear message.
+    p.add_argument("--eval-map", action="store_true", help=_LATER["eval_map"])
+    p.add_argument("--eval-map-every", type=int, default=0, metavar="N",
+                   help=_LATER["eval_map_every"])
+    p.add_argument("--qat", default=None, metavar="CKPT", help=_LATER["qat"])
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help=_LATER["data_parallel"])
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help=_LATER["model_parallel"])
+    args = p.parse_args(argv)
+
+    if args.model != "YOLOv2":
+        p.error(f"--model {args.model} is not ported yet: it comes with the "
+                f"{args.model} slice of the port (YOLOv2 only for now)")
+    aug_mode = "none" if args.no_augment else args.augment
+    if aug_mode == "host":
+        p.error("--augment host is not ported yet: host augmentation comes "
+                "with the host-augment slice of the port; use --augment "
+                "device or --augment none")
+    for name, message in _LATER.items():
+        if getattr(args, name):
+            p.error(f"not ported yet: {message}")
+    if args.image_size is not None and args.image_size % 32:
+        p.error("--image-size must be a multiple of 32")
+    args.augment = aug_mode
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+
+    import dataclasses
+
+    import torch
+
+    from odc_tpu_torch.config import BATCH_SIZE, MODEL_CONFIG, TRAIN_CONFIG
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.train import Trainer, checkpoint
+
+    ckpt_path = os.path.join(
+        args.ckpt_root,
+        args.model,
+        datetime.datetime.now().strftime("%Y-%m-%d %H-%M-%S"),
+    )
+    os.makedirs(ckpt_path, exist_ok=True)
+
+    if args.synthetic:
+        make_synthetic_voc(args.dataset_dir, num_train=16, num_val=8)
+    dataset = VOC(dataset_dir=args.dataset_dir)
+
+    image_size = MODEL_CONFIG[args.model].image_size
+    if args.image_size is not None:
+        image_size = (args.image_size, args.image_size)
+    train_cfg = dataclasses.replace(
+        TRAIN_CONFIG[args.model]["VOC2012"],
+        batch_size=args.batch_size or BATCH_SIZE,
+    )
+    if args.epochs is not None:
+        train_cfg.num_epoch_list = [args.epochs]
+        train_cfg.learning_rate_list = [
+            args.lr or train_cfg.learning_rate_list[0]
+        ]
+    if args.momentum is not None:
+        train_cfg.momentum = args.momentum
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = YOLOv2(
+        image_size=image_size, dtype=dtype, device=args.device,
+        seed=train_cfg.seed,
+    )
+    print(f"device: {next(model.parameters()).device}")
+
+    train_pipe = DetectionPipeline(
+        dataset.train_dataset,
+        image_hw=image_size,
+        batch_size=train_cfg.batch_size,
+        max_boxes=train_cfg.max_boxes,
+        mode="v2",
+        seed=train_cfg.seed,
+    )
+    val_pipe = DetectionPipeline(
+        dataset.val_dataset,
+        image_hw=image_size,
+        batch_size=train_cfg.batch_size,
+        max_boxes=train_cfg.max_boxes,
+        mode="v2",
+        shuffle=False,
+        # Validate over EVERY image like the reference; the tail batch is
+        # padded, not dropped.
+        drop_remainder=False,
+    )
+
+    trainer = Trainer(
+        model, train_pipe, val_pipe, train_cfg, ckpt_path=ckpt_path,
+        augment_cfg=AugmentConfig() if args.augment == "device" else None,
+    )
+
+    state = None
+    if args.resume:
+        state = checkpoint.restore(args.resume, trainer.init_state())
+        print(f"resumed from {args.resume} at step {state.step}")
+
+    trainer.fit(state)
+    print(f"done; checkpoints in {ckpt_path}")
+
+
+if __name__ == "__main__":
+    main()

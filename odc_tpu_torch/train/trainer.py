@@ -1,0 +1,394 @@
+"""Train/eval steps + the epoch/stage training loop.
+
+Port of ``odc_tpu/train/trainer.py``:
+
+* one ``train_step``: (device augmentation and target assignment →)
+  forward with batch-statistics BatchNorm → decode → loss → backward → SGD
+  update, all on the model's device; the only host↔device traffic is the
+  input batch in and, once per epoch, the collected losses out;
+* optimizer = torch-SGD semantics (``d = g + wd·p; buf = mu·buf + d;
+  p -= lr·buf`` over every parameter, BN scale/bias and conv biases
+  included).  The reference rebuilds its optimizer every step, which
+  silently zeroes momentum — ``momentum=0.0`` reproduces that effective
+  update; 0.9 gives the intended one;
+* staged LRs with the epoch-1 warmup curve (``schedule.py``);
+* per-epoch validation loss, best/final checkpoints, loss-history pickle and
+  a ``train_config.json`` snapshot, plus restore/resume;
+* multi-scale policy for v2 ("reference": size picked only at epoch 1;
+  "every10": every 10 epochs).
+
+Unlike the JAX package's functional ``TrainState``, the state here is
+updated IN PLACE: ``train_step`` mutates the model's parameters and BN
+buffers and the momentum buffers, and returns the same object.
+
+Validation runs batched at the pipeline's static size.  Not ported yet:
+the mAP-during-training hook (``eval_map_every``), YOLOv3's loss
+(``mode="v3"``), and the device mesh.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from odc_tpu_torch.config import TrainConfig, as_dict
+from odc_tpu_torch.losses.yolo_loss import (
+    Lambdas, yolo_loss, yolo_loss_per_image,
+)
+from odc_tpu_torch.ops.assign import YoloTargets, assign
+from odc_tpu_torch.ops.augment import augment_batch
+from odc_tpu_torch.train import checkpoint as ckpt_lib
+from odc_tpu_torch.train.schedule import StagedSchedule
+from odc_tpu_torch.utils.metrics import JsonlLogger
+
+
+class TrainState:
+    """The full train state: ``model`` (parameters and BN buffers),
+    ``momentum`` (one buffer per parameter, by parameter name) and ``step``.
+    ``TrainState(model)`` is a fresh state: zero momentum, step 0."""
+
+    def __init__(self, model: torch.nn.Module, momentum=None, step: int = 0):
+        self.model = model
+        self.momentum: Dict[str, torch.Tensor] = (
+            {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+            if momentum is None else momentum
+        )
+        self.step = step
+
+    def state_dict(self) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "momentum": dict(self.momentum),
+            "step": int(self.step),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"], strict=True)
+        if sorted(sd["momentum"]) != sorted(self.momentum):
+            raise KeyError("momentum names differ from the model's parameters")
+        with torch.no_grad():
+            for name, buf in self.momentum.items():
+                buf.copy_(sd["momentum"][name])
+        self.step = int(sd["step"])
+
+
+def _targets_of(batch) -> YoloTargets:
+    return YoloTargets(
+        cell=batch.cell, sig_txty=batch.sig_txty, twth=batch.twth,
+        box=batch.box, cls=batch.cls, valid=batch.valid,
+    )
+
+
+def _check_mode(mode: str) -> None:
+    if mode == "v3":
+        raise NotImplementedError(
+            "mode='v3' is not ported yet: the YOLOv3 loss comes with the "
+            "YOLOv3 slice of the port"
+        )
+    if mode not in ("v1", "v2"):
+        raise ValueError(f"mode must be 'v1' or 'v2', got {mode!r}")
+
+
+def sgd_update(
+    state: TrainState, lr: float, momentum: float, weight_decay: float
+) -> None:
+    """torch-SGD update from the parameters' ``.grad``, in place:
+    ``d = g + wd·p; buf = mu·buf + d; p -= lr·buf`` (no dampening, no
+    Nesterov), over every parameter."""
+    names, params = zip(*state.model.named_parameters())
+    bufs = [state.momentum[n] for n in names]
+    with torch.no_grad():
+        d = torch._foreach_add([p.grad for p in params], params, alpha=weight_decay)
+        torch._foreach_mul_(bufs, momentum)
+        torch._foreach_add_(bufs, d)
+        torch._foreach_add_(params, bufs, alpha=-lr)
+
+
+def make_train_step(
+    mode: str,
+    lambdas: Lambdas,
+    anchors=None,
+    momentum: float = 0.0,
+    weight_decay: float = 5e-4,
+    augment_cfg=None,
+    augment_warp_impl: str = "auto",
+    on_phase: Optional[Callable[[str], None]] = None,
+) -> Callable:
+    """Build the train step: ``(state, batch, lr, generator) -> (state,
+    metrics)``; ``batch`` holds tensors on the model's device, ``metrics``
+    0-dim tensors there (no host sync).
+
+    With ``augment_cfg`` set, the on-device augmentation
+    (``odc_tpu_torch.ops.augment``) runs inside the step, drawing from
+    ``generator``, and targets are re-assigned on the device from the
+    augmented boxes.  ``augment_warp_impl``: geometric-warp backend
+    ("auto": the CUDA kernel for CUDA tensors, the plain two-pass warp for
+    CPU tensors; see ``ops.augment._warp_images``).
+
+    ``on_phase`` (measurement only): called with "augment", "forward",
+    "loss", "backward", "update" as each part of the step has been
+    enqueued."""
+    _check_mode(mode)
+    mark = on_phase or (lambda name: None)
+
+    def train_step(state: TrainState, batch, lr: float, generator=None):
+        model = state.model
+        model.train()
+        image = batch.image
+        targets = _targets_of(batch)
+        if augment_cfg is not None:
+            with torch.no_grad():
+                image, boxes, valid = augment_batch(
+                    generator, image, batch.box, batch.valid, augment_cfg,
+                    warp_impl=augment_warp_impl,
+                )
+                targets = assign(
+                    boxes, batch.cls, valid, tuple(image.shape[1:3]), mode=mode
+                )
+        mark("augment")
+
+        model.zero_grad(set_to_none=True)
+        y = model(image)
+        mark("forward")
+        det = model.decode(y, tuple(image.shape[1:3]))
+        loss, parts = yolo_loss(
+            det, targets, lambdas, mode=mode, anchors=anchors
+        )
+        mark("loss")
+        loss.backward()
+        mark("backward")
+        sgd_update(state, float(lr), momentum, weight_decay)
+        state.step += 1
+        mark("update")
+
+        metrics = {
+            "loss": loss.detach(),
+            "loss_xy": parts.xy.detach(),
+            "loss_wh": parts.wh.detach(),
+            "loss_conf": parts.conf.detach(),
+            "loss_noobj": parts.noobj.detach(),
+            "loss_cls": parts.cls.detach(),
+        }
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(
+    mode: str,
+    lambdas: Lambdas,
+    anchors=None,
+    val_loss_mode: str = "per_image",
+) -> Callable:
+    """Build the val step: ``(state, batch) -> loss``.
+
+    ``val_loss_mode="per_image"`` returns ``(loss_sum, image_count)`` with
+    the reference's batch-size-1 semantics (per-image denominators, see
+    :func:`odc_tpu_torch.losses.yolo_loss.yolo_loss_per_image`);
+    ``"batched"`` returns the batch-global masked-mean loss (one scalar)."""
+    _check_mode(mode)
+    if val_loss_mode not in ("per_image", "batched"):
+        raise ValueError(f"unknown val_loss_mode {val_loss_mode!r}")
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch):
+        model = state.model
+        model.eval()
+        y = model(batch.image)
+        det = model.decode(y, tuple(batch.image.shape[1:3]))
+        targets = _targets_of(batch)
+        if val_loss_mode == "per_image":
+            losses, has_box = yolo_loss_per_image(
+                det, targets, lambdas, mode=mode, anchors=anchors
+            )
+            return losses.sum(), has_box.float().sum()
+        total, _ = yolo_loss(det, targets, lambdas, mode=mode, anchors=anchors)
+        return total
+
+    return eval_step
+
+
+class Trainer:
+    """Epoch/stage loop mirroring the JAX package's ``Trainer``."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        train_pipeline,
+        val_pipeline,
+        config: TrainConfig,
+        ckpt_path: str,
+        mode: Optional[str] = None,
+        rng_seed: Optional[int] = None,
+        augment_cfg=None,
+        eval_map_every: int = 0,
+    ) -> None:
+        if not getattr(train_pipeline, "drop_remainder", True):
+            raise ValueError(
+                "train pipeline must use drop_remainder=True: padded tail "
+                "rows are zero images that would feed BatchNorm batch "
+                "statistics in train mode (padding is eval-only)"
+            )
+        if eval_map_every:
+            raise NotImplementedError(
+                "eval_map_every is not ported yet: the mAP-during-training "
+                "hook comes with the eval slice of the port"
+            )
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.train_pipeline = train_pipeline
+        self.val_pipeline = val_pipeline
+        self.config = config
+        self.ckpt_path = ckpt_path
+        self.mode = mode or {
+            "YOLOv1": "v1", "YOLOv3": "v3"
+        }.get(type(model).__name__, "v2")
+        self.anchors = (
+            getattr(model, "anchors", None) if self.mode == "v2" else None
+        )
+        self.lambdas = Lambdas(
+            config.lambda_xy, config.lambda_wh, config.lambda_conf,
+            config.lambda_noobj, config.lambda_cls,
+        )
+        self.schedule = StagedSchedule(
+            config.learning_rate_list,
+            config.num_epoch_list,
+            config.warmup_first_epoch,
+        )
+        # The augmentation's random stream, on the model's device.
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.seed if rng_seed is None else rng_seed
+        )
+        self.train_step = make_train_step(
+            self.mode, self.lambdas, self.anchors,
+            momentum=config.momentum, weight_decay=config.weight_decay,
+            augment_cfg=augment_cfg,
+        )
+        self.val_loss_mode = getattr(config, "val_loss_mode", "per_image")
+        self.eval_step = make_eval_step(
+            self.mode, self.lambdas, self.anchors,
+            val_loss_mode=self.val_loss_mode,
+        )
+        os.makedirs(ckpt_path, exist_ok=True)
+        self.logger = JsonlLogger(os.path.join(ckpt_path, "metrics.jsonl"))
+
+    def init_state(self) -> TrainState:
+        """A fresh train state around the trainer's model (zero momentum,
+        step 0); the model keeps the weights it was built with."""
+        return TrainState(self.model)
+
+    # -- epochs ------------------------------------------------------------
+
+    def run_train_epoch(self, state: TrainState, epoch: int):
+        from odc_tpu_torch.data.prefetch import device_prefetch
+
+        losses = []
+        dataset_size = len(self.train_pipeline.dataset)
+        seen = 0
+        t0 = time.time()
+        for batch in device_prefetch(self.train_pipeline, self.device):
+            seen += batch.image.shape[0]
+            lr = self.schedule.step_lr(epoch, seen / dataset_size)
+            state, metrics = self.train_step(state, batch, lr, self.generator)
+            losses.append(metrics["loss"])
+        if not losses:
+            return state, 0.0
+        # One host sync at epoch end, not per step.
+        losses = torch.stack(losses).cpu().numpy()
+        dt = time.time() - t0
+        self.logger.write(
+            kind="train_epoch", epoch=epoch,
+            loss_mean=float(np.mean(losses)),
+            lr=self.schedule.stage_lr(epoch),
+            images_per_sec=seen / max(dt, 1e-9),
+        )
+        return state, float(np.mean(losses))
+
+    def run_val_epoch(self, state: TrainState, epoch: int) -> float:
+        from odc_tpu_torch.data.prefetch import device_prefetch
+
+        losses, weights = [], []
+        for batch in device_prefetch(self.val_pipeline, self.device):
+            if self.val_loss_mode == "per_image":
+                # eval_step returns (Σ per-image losses, #images with
+                # boxes); padded tail rows have no boxes and count zero.
+                s, n = self.eval_step(state, batch)
+                losses.append(s)
+                weights.append(n)
+            else:
+                losses.append(self.eval_step(state, batch))
+                # Padded tail rows carry img_id == -1: weight each batch by
+                # its real image count.
+                weights.append((batch.img_id >= 0).float().sum())
+        if not losses:
+            return 0.0
+        losses = torch.stack(losses).cpu().numpy().astype(np.float64)
+        weights = torch.stack(weights).cpu().numpy().astype(np.float64)
+        if self.val_loss_mode == "per_image":
+            val = float(losses.sum() / max(weights.sum(), 1.0))
+        else:
+            val = float((losses * weights).sum() / max(weights.sum(), 1.0))
+        self.logger.write(kind="val_epoch", epoch=epoch, loss=val)
+        return val
+
+    # -- full run ------------------------------------------------------------
+
+    def _maybe_multiscale(self, epoch: int) -> None:
+        if self.mode != "v2" or not self.config.multiscale_sizes:
+            return
+        policy = self.config.multiscale_policy
+        repick = (
+            epoch == 1 if policy == "reference" else (epoch - 1) % 10 == 0
+        )
+        if repick:
+            size = int(
+                np.random.default_rng(self.config.seed + epoch).choice(
+                    self.config.multiscale_sizes
+                )
+            )
+            self.train_pipeline.set_image_size((size, size))
+
+    def fit(self, state: Optional[TrainState] = None) -> Tuple[TrainState, dict]:
+        if state is None:
+            state = self.init_state()
+
+        with open(
+            os.path.join(self.ckpt_path, "train_config.json"), "w"
+        ) as f:
+            json.dump(as_dict(self.config), f, indent=4, default=str)
+
+        train_hist, val_hist = [], []
+        min_val = float("inf")
+
+        for epoch in self.schedule.epochs():
+            self._maybe_multiscale(epoch)
+            state, train_loss = self.run_train_epoch(state, epoch)
+            val_loss = self.run_val_epoch(state, epoch)
+            train_hist.append(train_loss)
+            val_hist.append(val_loss)
+            print(
+                f"Epoch: {epoch} --> Training: (Loss Mean: {train_loss})    "
+                f"Validation: (Loss: {val_loss})"
+            )
+            if val_loss < min_val:
+                ckpt_lib.save(
+                    os.path.join(self.ckpt_path, "best_model.ckpt"), state
+                )
+                min_val = val_loss
+
+        ckpt_lib.save(os.path.join(self.ckpt_path, "final_model.ckpt"), state)
+        history = {
+            "train_loss_mean_list": train_hist,
+            "val_loss_list": val_hist,
+        }
+        with open(
+            os.path.join(self.ckpt_path, "training_result.pkl"), "wb"
+        ) as f:
+            pickle.dump(history, f)
+        return state, history

@@ -1,5 +1,6 @@
 """Shared fixtures for the ``tests/test_torch_*.py`` parity tests: one JAX
-YOLOv2 init carried into the PyTorch port through the weight bridge."""
+YOLOv2 init carried into the PyTorch port through the weight bridge, and
+the JAX augmentation's random draws replayed as the port's parameters."""
 
 import numpy as np
 
@@ -8,11 +9,13 @@ import jax.numpy as jnp
 import torch
 
 from odc_tpu.models.yolov2 import YOLOv2 as JaxYOLOv2
+from odc_tpu.ops import augment as jaug
 from odc_tpu_torch.models.convert_jax import (
     jax_from_state_dict, load_jax_yolov2,
 )
 from odc_tpu_torch.models.layers import TorchBatchNorm
 from odc_tpu_torch.models.yolov2 import YOLOv2
+from odc_tpu_torch.ops import augment as taug
 
 
 def port_model(variables) -> YOLOv2:
@@ -48,3 +51,36 @@ def calibrated_yolov2(images: np.ndarray):
     for h in hooks:
         h.remove()
     return jmodel, jax_from_state_dict(model.state_dict())
+
+
+def replay_params(key, b, cfg, hw) -> taug.AugmentParams:
+    """The parameters ``odc_tpu.ops.augment.augment_batch(key, ...)`` draws
+    for a batch of ``b`` (its key splits and ``_color``'s draws, replayed),
+    as the port's ``AugmentParams``."""
+    keys = jax.random.split(key, b)
+    kg, kc = jnp.moveaxis(jax.vmap(jax.random.split)(keys), 1, 0)
+    ms = jax.vmap(lambda k: jaug._sample_affine(k, cfg, hw))(kg)
+
+    def color(k):
+        ks = jax.random.split(k, 6)
+        perm = jax.random.permutation(ks[0], 3)
+        do_shuffle = jax.random.uniform(ks[1]) < cfg.p_channel_shuffle
+        perm = jnp.where(do_shuffle, perm, jnp.arange(3))
+        do_hsv = jax.random.uniform(ks[2]) < cfg.p_hsv
+        dh = jax.random.uniform(
+            ks[3], minval=-cfg.hue_shift_limit, maxval=cfg.hue_shift_limit)
+        ds = jax.random.uniform(
+            ks[4], minval=-cfg.sat_shift_limit, maxval=cfg.sat_shift_limit)
+        dv = jax.random.uniform(
+            ks[5], minval=-cfg.val_shift_limit, maxval=cfg.val_shift_limit)
+        return perm, do_hsv, dh, ds, dv
+
+    perm, do_hsv, dh, ds, dv = jax.vmap(color)(kc)
+    return taug.AugmentParams(
+        ms=torch.tensor(np.asarray(ms, np.float32)),
+        perm=torch.tensor(np.asarray(perm, np.int64)),
+        do_hsv=torch.tensor(np.asarray(do_hsv)),
+        dh=torch.tensor(np.asarray(dh, np.float32)),
+        ds=torch.tensor(np.asarray(ds, np.float32)),
+        dv=torch.tensor(np.asarray(dv, np.float32)),
+    )
