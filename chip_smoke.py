@@ -5,13 +5,20 @@
 
 Builds every CUDA kernel of the ported paths from ``odc_tpu_torch/csrc``
 with ``nvcc``, holds each kernel against its plain PyTorch version on the
-card, then drives the two main paths, each with the launch counts set to 0
-just before and read just after:
+card, then drives the three main paths, each with the launch counts set to
+0 just before and read just after:
 
 * serving — YOLOv2-416 bf16 end-to-end inference through ``make_infer_fn``
   (fused superstem -> Darknet-19 -> neck -> head -> decode -> NMS) on a few
   batches, checking that both kernels launched once per call and that the
   outputs agree with the unfused model;
+* int8 serving — the same model through ``make_infer_fn(int8_scales=...)``
+  after calibration on 32 images: the full int8 PTQ engine (s2d stem, 19
+  backbone convs and the neck as int8 GEMMs of the hand-written matmul
+  kernel, bf16 head) -> decode -> NMS, checking 20 GEMM and 1 NMS launches
+  per call, a kernel head bitwise equal to a plain-GEMM head, and the int8
+  head against the f32 model; then the ``int8_neck`` path (fused stem,
+  int8 neck: 1 superstem, 1 GEMM, 1 NMS launch per call);
 * training — YOLOv2-416 bf16 at batch 32 through ``Trainer.fit`` with
   in-step device augmentation (warp kernel -> color -> box transform ->
   assign -> forward with batch-statistics BN -> loss -> backward -> SGD),
@@ -56,10 +63,14 @@ TRAIN_IMAGES, VAL_IMAGES = 128, 32
 TRAIN_EPOCHS = 2
 TIMED_STEPS = 12
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
-# and f32 CUDA-core FLOP/s.
+# int8 path: calibration batch (as bench.py calibrates the JAX engine).
+CALIB_IMAGES = 32
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core,
+# int8 tensor-core and f32 CUDA-core operations/s.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 F32_FLOPS = 67e12
 
 
@@ -436,7 +447,7 @@ def phase_e2e():
     if kept[0] == 0:
         print("the product threshold 0.9 keeps nothing under random weights; "
               "the gap threshold above exercises suppression")
-    return launches, img_s
+    return launches, img_s, model, requests
 
 
 def _layer_breakdown(model, infer, images, iters: int = 10):
@@ -507,6 +518,269 @@ def _profile(fn, calls: int = 3, also=()):
     for i, (ms, key, n) in enumerate(ranked):
         if i < 12 or any(name in key for name in also):
             print(f"  {ms:8.3f}  x{n:<4d} {key[:90]}")
+
+
+def _mm_bound(m: int, k: int, n: int, elem: int, out: int):
+    """(bytes, operations) a product [m, k] @ [k, n] must move and do:
+    each operand read once, the result written once."""
+    return (m * k + k * n) * elem + m * n * out, 2.0 * m * k * n
+
+
+def phase_matmul():
+    """Kernel vs plain GEMM on the card: the TPU probe's four shapes at
+    batch 64 (M = 64 * 169), the engine's largest A (stage 2) and a ragged
+    shape, int8 (bitwise, and bitwise against ``torch._int_mm``) and bf16
+    (f32 summation bound), with times in a CUDA graph."""
+    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul, matmul_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    m13 = BATCH * 169
+    shapes = [("13grid 3x3 1024->1024", m13, 9216, 1024),
+              ("13grid 3x3  512->1024", m13, 4608, 1024),
+              ("13grid 1x1 1024-> 512", m13, 1024, 512),
+              ("26grid 3x3  256-> 512", 4 * m13, 2304, 512),
+              ("stage 2 3x3 32->64 at 208", BATCH * 208 * 208, 288, 64),
+              ("ragged", 1000, 300, 70)]
+    for name, m, k, n in shapes:
+        a = torch.randint(-128, 128, (m, k), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=gen, device=DEVICE,
+                           dtype=torch.int8)
+        b = bt.t()
+        got, ref = matmul(a, b), matmul_plain(a, b)
+        sync()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"matmul int8 {name}: kernel != plain")
+        lib = "n/a (_int_mm needs K, N multiples of 8)"
+        lib_ms = None
+        if k % 8 == 0 and n % 8 == 0:
+            if not torch.equal(torch._int_mm(a, b), ref):
+                raise AssertionError(f"matmul int8 {name}: kernel != _int_mm")
+            lib_ms = graph_ms(lambda: torch._int_mm(a, b), 5)
+            lib = f"{lib_ms:.4f} ms"
+        ms = graph_ms(lambda: matmul(a, b), 5)
+        plain_ms = time_ms(lambda: matmul_plain(a, b), 3, warmup=1)
+        nbytes, ops = _mm_bound(m, k, n, 1, 4)
+        bms, by = bound_ms(nbytes, ops, INT8_OPS)
+        print(f"matmul int8 {name} M={m} K={k} N={n}: bitwise equal to plain"
+              f"{' and _int_mm' if lib_ms is not None else ''}; kernel "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.3f}"
+              f" ms, _int_mm {lib}, bound {bms:.4f} ms ({by})")
+        del a, bt, b, got, ref
+
+        a = torch.randn(m, k, generator=gen, device=DEVICE).bfloat16()
+        bt = torch.randn(n, k, generator=gen, device=DEVICE).bfloat16()
+        b = bt.t()
+        got, ref = matmul(a, b), matmul_plain(a, b)
+        # f32 summation over K terms: |err| <= K * 2**-24 * (|a| @ |b|).
+        tol = k * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+        err = (got - ref).abs()
+        rel = float((err / (a.float().abs() @ b.float().abs())
+                     .clamp_min(1e-30)).max())
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"matmul bf16 {name}: beyond the f32 bound")
+        ms = graph_ms(lambda: matmul(a, b), 5)
+        lib_ms = graph_ms(lambda: torch.matmul(a, b), 5)
+        nbytes, ops = _mm_bound(m, k, n, 2, 4)
+        bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+        print(f"matmul bf16 {name}: max |kernel - plain| {float(err.max()):.3e}"
+              f" ({rel:.2e} of |a| @ |b|; bound K * 2^-24 = "
+              f"{k * 2.0 ** -24:.2e}); kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s), torch.matmul (bf16 out) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        del a, bt, b, got, ref, tol, err
+
+
+@contextlib.contextmanager
+def _swap_matmul(fn):
+    """Route the int8 convolutions' GEMM (``ops/quantize.py`` calls
+    ``matmul_kernel.matmul``) through ``fn(real, a, b)``; the kernel module
+    itself, and its launch count, stay as they are."""
+    import types
+
+    from odc_tpu_torch.ops import quantize
+
+    real = quantize.matmul_kernel
+    quantize.matmul_kernel = types.SimpleNamespace(
+        matmul=lambda a, b: fn(real.matmul, a, b))
+    try:
+        yield
+    finally:
+        quantize.matmul_kernel = real
+
+
+def phase_int8_e2e(model, requests, counters):
+    """The int8 main path: calibrate on 32 images, then YOLOv2-416 through
+    ``make_infer_fn(int8_scales=..., int8_stem='s2d')`` on the requests of
+    phase_e2e; ``counters`` are the wrappers whose launch counts are zeroed
+    just before the calls and read just after.  Then the checks on the
+    card, the main path's own GEMMs against the plain version and
+    ``torch._int_mm``, and the ``int8_neck`` path."""
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops import int8_engine as te
+    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul_plain
+    from odc_tpu_torch.ops.detect import make_infer_fn
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 10)
+    calib = torch.randint(0, 256, (CALIB_IMAGES, *HW, 3), generator=gen,
+                          dtype=torch.uint8).to(DEVICE)
+    scales = te.calibrate(model, calib)  # TF32 is off (main)
+    sync()
+    print(f"int8: calibrated on {CALIB_IMAGES} images in "
+          f"{time.perf_counter() - t0:.2f} s; ranges [22, 2] in "
+          f"[{float(scales.min()):.4g}, {float(scales.max()):.4g}]")
+    del calib
+    infer = make_infer_fn(model, 0.9, 0.5, MAX_KEEP, int8_scales=scales,
+                          int8_stem="s2d")
+    with torch.no_grad():
+        conf0 = model.decode(te.yolov2_int8_forward(
+            model, requests[0], scales=scales, stem="s2d"), HW).conf
+    n0 = requests[0].shape[0]
+    gap_thre = _gap_threshold(conf0, 8 * n0, 48 * n0)
+
+    calls = ([(requests[0], 0.9), (requests[0], gap_thre)]
+             + [(requests[1], 0.9)] * (3 + TIMED_CALLS))
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    call_ms, outs = [], []
+    for i, (images, conf_thre) in enumerate(calls):
+        before = {k: w.launches for k, w in counters.items()}
+        t = time.perf_counter()
+        out = infer(images, conf_thre=conf_thre)
+        sync()
+        if i >= len(calls) - TIMED_CALLS:
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        step = {k: w.launches - before[k] for k, w in counters.items()}
+        if step != {"int8_matmul": 20, "nms_suppress": 1, "superstem": 0}:
+            raise AssertionError(f"int8 call {i}: launches {step}")
+        if i < 3:
+            outs.append((images, conf_thre, out))
+    launches = {k: w.launches for k, w in counters.items()}
+    print(f"main path (int8): {len(calls)} calls, launches {launches}")
+    for images, conf_thre, (boxes, conf, cls, keep) in outs:
+        b = images.shape[0]
+        if not (boxes.shape == (b, MAX_KEEP, 4) and keep.shape == (b, MAX_KEEP)
+                and cls.shape == (b, MAX_KEEP, model.num_cls)):
+            raise AssertionError("int8: unexpected output shapes")
+        if not all(bool(torch.isfinite(t).all()) for t in (boxes, conf, cls)):
+            raise AssertionError("int8: non-finite outputs")
+        if bool((conf[keep] < conf_thre).any()):
+            raise AssertionError("int8: a kept box is below the threshold")
+        print(f"int8 batch {b} at conf {conf_thre:.6f}: kept per image "
+              f"{keep.sum(1).tolist()[:16]}{' ...' if b > 16 else ''}")
+    if not bool(outs[1][2][3].any()):
+        raise AssertionError("int8: the gap threshold kept no box")
+    med = statistics.median(call_ms)
+    q = statistics.quantiles(call_ms, n=4)
+    img_s = BATCH / med * 1e3
+    print(f"YOLOv2-416 int8 PTQ e2e (s2d stem), batch {BATCH}, images on the "
+          f"card: median {med:.3f} ms/call (quartiles {q[0]:.3f} / "
+          f"{q[2]:.3f}, n={len(call_ms)}) -> {img_s:.1f} img/s")
+    _profile(lambda: infer(requests[1]), also=("matmul_kernel",))
+
+    images = requests[1]
+    with torch.no_grad():
+        y8 = te.yolov2_int8_forward(model, images, scales=scales, stem="s2d")
+        with _swap_matmul(lambda real, a, b: matmul_plain(a, b)):
+            y8_plain = te.yolov2_int8_forward(model, images, scales=scales,
+                                              stem="s2d")
+        if not torch.equal(y8, y8_plain):
+            raise AssertionError("int8 head: kernel GEMMs != plain GEMMs")
+        model32 = YOLOv2(dtype=torch.float32, device=DEVICE, seed=SEED)
+        model32.load_state_dict(model.state_dict())
+        model32.eval()
+        y32 = model32(images)
+        y16 = model(images)
+    rng = float(y32.abs().max())
+    err = float((y8 - y32).abs().max())
+    mean_err = float((y8 - y32).abs().mean())
+    print(f"int8 head [{BATCH},13,13,5,25]: bitwise equal with the kernel's "
+          f"and the plain version's GEMMs; max |int8 - f32| {err:.4f} = "
+          f"{100 * err / rng:.2f}% of the f32 head's range {rng:.3f} (PTQ "
+          f"budget 6%), mean {mean_err:.5f}; bf16 model for scale: max "
+          f"|bf16 - f32| {float((y16 - y32).abs().max()):.4f}")
+    del y8_plain, y16, model32
+    if not bool(torch.isfinite(y8).all()):
+        raise AssertionError("int8 head: non-finite values")
+
+    with torch.no_grad():
+        s2d1 = te.yolov2_int8_forward(model, images, scales=scales,
+                                      stem="s2d", stop_after=1)
+        front1 = te.yolov2_int8_forward(model, images, scales=scales,
+                                        bf16_front=1, stop_after=1)
+        s2d2 = te.yolov2_int8_forward(model, images, scales=scales,
+                                      stem="s2d2", stop_after=1)
+        if not torch.equal(s2d2, te._pool(s2d1)):
+            raise AssertionError("int8: stem s2d2 != pooled s2d codes")
+    flips = (s2d1 != front1)
+    print(f"int8 codes after conv1: s2d2 == pool(s2d) bitwise; s2d vs "
+          f"bf16_front=1 (two cuDNN f32 convs of bf16 values) differ in "
+          f"{int(flips.sum())} of {flips.numel()} codes, by at most "
+          f"{int((s2d1.int() - front1.int()).abs().max())}")
+
+    # The main path's own 20 GEMMs, recorded from one call.
+    recorded = []
+
+    def record(real, a, b):
+        recorded.append((a, b))
+        return real(a, b)
+
+    with _swap_matmul(record), torch.no_grad():
+        te.yolov2_int8_forward(model, images, scales=scales, stem="s2d")
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+               ops_ms=0.0, bound_ms=0.0)
+    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul
+    for i, (a, b) in enumerate(recorded):
+        m, k = a.shape
+        n = b.shape[1]
+        got, ref = matmul(a, b), matmul_plain(a, b)
+        if not (torch.equal(got, ref) and torch.equal(torch._int_mm(a, b), ref)):
+            raise AssertionError(f"main-path GEMM {i}: kernel, plain and "
+                                 f"_int_mm disagree")
+        del got, ref
+        ms = graph_ms(lambda: matmul(a, b), 3)
+        plain_ms = time_ms(lambda: matmul_plain(a, b), 2, warmup=1)
+        lib_ms = graph_ms(lambda: torch._int_mm(a, b), 3)
+        nbytes, ops = _mm_bound(m, k, n, 1, 4)
+        bms, by = bound_ms(nbytes, ops, INT8_OPS)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bms),
+                       ("bytes_ms", nbytes / HBM_BPS * 1e3),
+                       ("ops_ms", ops / INT8_OPS * 1e3)):
+            tot[key] += v
+        print(f"  main-path GEMM {i:2d} M={m} K={k} N={n}: kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.3f}, _int_mm "
+              f"{lib_ms:.4f}, bound {bms:.4f} ({by})")
+    del recorded
+    print(f"main-path GEMMs ({BATCH} images): kernel {tot['ms']:.3f} ms, "
+          f"plain {tot['plain_ms']:.3f}, _int_mm {tot['library_ms']:.3f}, "
+          f"bound {tot['bound_ms']:.4f} ms (operations {tot['ops_ms']:.4f}, "
+          f"bytes {tot['bytes_ms']:.4f}); all bitwise equal to plain and "
+          f"_int_mm")
+    row = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+           "bound_ms": tot["bound_ms"],
+           "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                        else "bytes"),
+           "max_abs_err": 0.0, "library_ms": tot["library_ms"]}
+
+    # The int8_neck path: fused stem, int8 neck.
+    neck_infer = make_infer_fn(model, 0.9, 0.5, MAX_KEEP, int8_neck=True)
+    neck_ms = []
+    for i in range(3 + TIMED_CALLS // 2):
+        before = {k: w.launches for k, w in counters.items()}
+        t = time.perf_counter()
+        neck_infer(requests[1])
+        sync()
+        if i >= 3:
+            neck_ms.append((time.perf_counter() - t) * 1e3)
+        step = {k: w.launches - before[k] for k, w in counters.items()}
+        if step != {"int8_matmul": 1, "nms_suppress": 1, "superstem": 1}:
+            raise AssertionError(f"int8_neck call {i}: launches {step}")
+    print(f"YOLOv2-416 bf16 with the int8 neck, batch {BATCH}: median "
+          f"{statistics.median(neck_ms):.3f} ms/call (n={len(neck_ms)}); "
+          f"1 superstem, 1 GEMM, 1 NMS launch per call")
+    return launches, img_s, row
 
 
 def _inverse_maps(hw, specs):
@@ -855,6 +1129,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import odc_tpu_torch.ops.detect  # noqa: F401  (fails outside the repo)
+    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul
     from odc_tpu_torch.ops.cuda.nms_kernel import suppress
     from odc_tpu_torch.ops.cuda.superstem_kernel import superstem
     from odc_tpu_torch.ops.cuda.warp_kernel import warp_affine
@@ -870,11 +1145,18 @@ def main() -> int:
     nms = phase_nms()
     stem = phase_superstem()
     warp = phase_warp()
-    launches, img_s = phase_e2e()
+    launches, img_s, model, requests = phase_e2e()
+    phase_matmul()
+    int8_launches, int8_img_s, mm = phase_int8_e2e(model, requests, {
+        "int8_matmul": matmul, "nms_suppress": suppress,
+        "superstem": superstem})
+    del model, requests
+    torch.cuda.empty_cache()
     train_launches, train_img_s = phase_train({
         "nms_suppress": suppress, "superstem": superstem,
         "warp_affine": warp_affine})
-    # Each kernel's launches are those of the main path that runs it.
+    # Each kernel's launches are those of the main path that runs it; the
+    # GEMM's times are sums over the 20 GEMMs of one int8 call.
     kernels = [
         dict(name="nms_suppress", route="cuda",
              source="odc_tpu_torch/csrc/nms_suppress.cu",
@@ -888,9 +1170,13 @@ def main() -> int:
              source="odc_tpu_torch/csrc/warp_affine.cu",
              replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
              launches=train_launches["warp_affine"], **warp),
+        dict(name="int8_matmul", route="cuda",
+             source="odc_tpu_torch/csrc/int8_matmul.cu",
+             replaces="scripts/probe_int8_mxu.py:76",
+             launches=int8_launches["int8_matmul"], **mm),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
-          f"train {train_img_s:.1f} img/s")
+          f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

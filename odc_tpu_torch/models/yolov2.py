@@ -9,7 +9,7 @@ a Conv1x1 head reshaped to [N, Hg, Wg, A, 5 + C] in NHWC order.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -77,15 +77,26 @@ class YOLOv2(nn.Module):
         return len(self.anchors)
 
     def forward(
-        self, x: torch.Tensor, stem_out: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        stem_out: Optional[torch.Tensor] = None,
+        neck_override: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """[N, H, W, 3] RGB (0-255) -> raw head [N, Hg, Wg, A, 5 + C] f32.
 
         ``stem_out`` (inference only): the fused stem's [N, H/4, W/4, 64]
-        map in place of stages 1-2 (see ``ops/detect.py``)."""
+        map in place of stages 1-2 (see ``ops/detect.py``).
+        ``neck_override`` (inference only, ignored in training mode): a
+        replacement of the 3x3 neck conv, such as the quantized
+        ``ops/quantize.py::int8_conv_bn_leaky``, applied to the
+        [N, Hg, Wg, 3072] concat."""
         c5, c7 = self.backbone(x, stem_out=stem_out)
         reorg = quadrant_stack if self.neck_kind == "quadrant" else space_to_depth
-        h = self.neck(torch.cat([reorg(c5), c7], dim=-1))  # [N, Hg, Wg, 1024]
+        h = torch.cat([reorg(c5), c7], dim=-1)  # [N, Hg, Wg, 3072]
+        if neck_override is not None and not self.training:
+            h = neck_override(h)
+        else:
+            h = self.neck(h)  # [N, Hg, Wg, 1024]
         dt = self.dtype
         y = F.conv2d(
             h.permute(0, 3, 1, 2), self.head.weight.to(dt), self.head.bias.to(dt)

@@ -30,6 +30,7 @@ SOURCES: Dict[str, tuple] = {
     "nms_suppress": ("nms_suppress.cu", ["-fmad=false"]),
     "superstem": ("superstem.cu", []),
     "warp_affine": ("warp_affine.cu", ["-fmad=false"]),
+    "int8_matmul": ("int8_matmul.cu", []),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -45,6 +46,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "warp_affine": {
         "warp_affine": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "int8_matmul": {
+        "matmul_s8s8s32": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "matmul_bf16bf16f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

@@ -78,8 +78,8 @@ def test_infer_matches_jit_infer_fn(shared, compact, class_wise):
 
 
 def test_package_imports_without_jax():
-    """Every module of odc_tpu_torch imports with jax, flax and odc_tpu
-    made unimportable."""
+    """Every module of odc_tpu_torch, the int8 slice's included, imports
+    with jax, flax and odc_tpu made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'odc_tpu'):\n"
@@ -89,7 +89,9 @@ def test_package_imports_without_jax():
         "odc_tpu_torch.__path__, 'odc_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 17, names\n"
+        "int8 = {'odc_tpu_torch.ops.quantize', 'odc_tpu_torch.ops.int8_engine',\n"
+        "        'odc_tpu_torch.ops.cuda.matmul_kernel'}\n"
+        "assert len(names) >= 37 and int8 <= set(names), names\n"
         "print(len(names))\n"
     )
     res = subprocess.run(

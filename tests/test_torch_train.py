@@ -237,7 +237,8 @@ def runs():
     it, as numpy trees.  The first step, from zero buffers, is also the
     ``momentum=0.0`` update."""
     jmodel = JaxYOLOv2(dtype=jnp.float32)
-    variables = jmodel.init(
+    # Jitted: a quarter of the eager init's time, the same leaves.
+    variables = jax.jit(jmodel.init)(
         jax.random.key(0), jnp.zeros((1,) + HW + (3,), jnp.uint8)
     )
     init_tree = _state_tree(jtrainer.TrainState.create(variables))

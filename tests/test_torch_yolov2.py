@@ -16,7 +16,7 @@ from odc_tpu_torch.models.convert_jax import (
     jax_from_state_dict, state_dict_from_jax,
 )
 from odc_tpu_torch.ops import decode as tdecode
-from torch_port_helpers import calibrated_yolov2, port_model
+from torch_port_helpers import calibrated_yolov2, jax_init, port_model
 
 
 @pytest.fixture(scope="module")
@@ -30,10 +30,7 @@ def shared():
 
 def test_bridge_round_trips_exactly(shared):
     _, jmodel, variables = shared
-    fresh = jax.tree.map(
-        np.asarray,
-        jmodel.init(jax.random.key(1), jnp.zeros((1, 64, 64, 3), jnp.uint8)),
-    )
+    fresh = jax_init(jmodel, key=1)
     for tree in (fresh, variables):
         back = jax_from_state_dict(state_dict_from_jax(tree))
         assert jax.tree.structure(back) == jax.tree.structure(tree)

@@ -1,6 +1,10 @@
 """Shared fixtures for the ``tests/test_torch_*.py`` parity tests: one JAX
-YOLOv2 init carried into the PyTorch port through the weight bridge, and
-the JAX augmentation's random draws replayed as the port's parameters."""
+YOLOv2 init carried into the PyTorch port through the weight bridge, the
+port's own seeded YOLOv2 for the int8 tests, and the JAX augmentation's
+random draws replayed as the port's parameters.  Importing it caps
+PyTorch's intra-op threads (below)."""
+
+import functools
 
 import numpy as np
 
@@ -17,12 +21,27 @@ from odc_tpu_torch.models.layers import TorchBatchNorm
 from odc_tpu_torch.models.yolov2 import YOLOv2
 from odc_tpu_torch.ops import augment as taug
 
+# The tests run under pytest-xdist, several worker processes on one host,
+# and PyTorch starts one intra-op thread per core in each, which then
+# contend for the cores.  Two threads a worker ran tests/test_torch_*.py in
+# 176 s where the default took 237 s (six workers, eight cores).
+torch.set_num_threads(2)
+
 
 def port_model(variables) -> YOLOv2:
     """The port's f32 CPU YOLOv2 holding the bridged JAX ``variables``."""
     model = YOLOv2(dtype=torch.float32, device="cpu")
     load_jax_yolov2(model, variables)
     return model.eval()
+
+
+def jax_init(jmodel, key: int = 0):
+    """``jmodel.init`` at a [1, 64, 64, 3] input, as numpy leaves.  Jitted:
+    one compiled program takes a quarter of the time of the eager init,
+    op by op, and gives the same leaves bit for bit."""
+    v = jax.jit(jmodel.init)(
+        jax.random.key(key), jnp.zeros((1, 64, 64, 3), jnp.uint8))
+    return jax.tree.map(np.asarray, v)
 
 
 def calibrated_yolov2(images: np.ndarray):
@@ -33,8 +52,25 @@ def calibrated_yolov2(images: np.ndarray):
     near its bias, so detections would hinge on noise-level differences;
     calibrated, the confidences spread over (0, 1)."""
     jmodel = JaxYOLOv2(dtype=jnp.float32)
-    v = jmodel.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3), jnp.uint8))
-    model = port_model(jax.tree.map(np.asarray, v))
+    model = port_model(jax_init(jmodel))
+    return jmodel, calibrate_bn(model, images)
+
+
+@functools.lru_cache(maxsize=1)
+def int8_parity_setup():
+    """(images [2, 64, 96, 3] uint8, JAX model, numpy variables) shared by
+    the int8 parity tests of one process: a YOLOv2 from the port's own
+    seeded init (no JAX init to compile), BN calibrated on the images."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 255, (2, 64, 96, 3), dtype=np.uint8)
+    model = YOLOv2(dtype=torch.float32, device="cpu", seed=0).eval()
+    return images, JaxYOLOv2(dtype=jnp.float32), calibrate_bn(model, images)
+
+
+def calibrate_bn(model: YOLOv2, images: np.ndarray):
+    """Set every BN's running statistics of the port's ``model`` to the
+    batch statistics of ``images`` at its input, layer by layer; returns
+    the model's weights as JAX numpy variables."""
 
     def set_stats(bn, args):
         x = args[0].float().reshape(-1, args[0].shape[-1])
@@ -50,7 +86,7 @@ def calibrated_yolov2(images: np.ndarray):
         model(torch.tensor(images))
     for h in hooks:
         h.remove()
-    return jmodel, jax_from_state_dict(model.state_dict())
+    return jax_from_state_dict(model.state_dict())
 
 
 def replay_params(key, b, cfg, hw) -> taug.AugmentParams:
