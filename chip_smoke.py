@@ -15,10 +15,11 @@ card, then drives the three main paths, each with the launch counts set to
 * int8 serving — the same model through ``make_infer_fn(int8_scales=...)``
   after calibration on 32 images: the full int8 PTQ engine (s2d stem, 19
   backbone convs and the neck as int8 GEMMs of the hand-written matmul
-  kernel, bf16 head) -> decode -> NMS, checking 20 GEMM and 1 NMS launches
-  per call, a kernel head bitwise equal to a plain-GEMM head, and the int8
-  head against the f32 model; then the ``int8_neck`` path (fused stem,
-  int8 neck: 1 superstem, 1 GEMM, 1 NMS launch per call);
+  kernel, bf16 head) -> decode -> NMS, checking 20 GEMM launches per call,
+  all on the GEMM's wgmma + TMA route, and 1 NMS launch, a kernel head
+  bitwise equal to a plain-GEMM head, and the int8 head against the f32
+  model; then the ``int8_neck`` path (fused stem, int8 neck: 1 superstem,
+  1 GEMM, 1 NMS launch per call);
 * training — YOLOv2-416 bf16 at batch 32 through ``Trainer.fit`` with
   in-step device augmentation (warp kernel -> color -> box transform ->
   assign -> forward with batch-statistics BN -> loss -> backward -> SGD),
@@ -275,15 +276,22 @@ def phase_superstem():
         h = imagenet_normalize(x, torch.bfloat16)
         return max_pool_2x2(blocks[1](max_pool_2x2(blocks[0](h))))
 
+    # The main path's shape, odd sizes, and edge cases of the bf16 route's
+    # 8 x 16 output tiles: maps smaller than one tile (4x4 -> 1x1), and
+    # rows and columns that leave the last tile partly empty (52x60 ->
+    # 13x15).
     worst = 0.0
-    for b, (h, w) in ((BATCH, HW), (3, (30, 45)), (2, (100, 132))):
+    for b, (h, w) in ((BATCH, HW), (3, (30, 45)), (2, (100, 132)),
+                      (2, (4, 4)), (2, (52, 60)), (3, (7, 9))):
         x = torch.randint(0, 256, (b, h, w, 3), generator=gen,
                           dtype=torch.uint8).to(DEVICE)
         with torch.no_grad():
             got = superstem(x, w1, w2)
             ref = superstem_plain(x, w1, w2)
             sync()
-            err = float((got.float() - ref.float()).abs().max())
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            n_diff = int((diff > 0).sum())
             tol = _bf16_ulp(ref.float())
             if got.shape != ref.shape or not err <= tol:
                 raise AssertionError(
@@ -295,8 +303,9 @@ def phase_superstem():
             if not err32 <= tol32:
                 raise AssertionError(f"superstem f32 {h}x{w}: err {err32}")
             lib_err = float((unfused(x).float() - ref.float()).abs().max())
-        print(f"superstem {b}x{h}x{w}: bf16 max |kernel - plain| {err} "
-              f"(bound 1 ulp = {tol}), f32 {err32:.2e} (bound {tol32:.2e}), "
+        print(f"superstem {b}x{h}x{w}: bf16 (tensor cores) max |kernel - "
+              f"plain| {err} (bound 1 ulp = {tol}) in {n_diff} of "
+              f"{diff.numel()} values, f32 {err32:.2e} (bound {tol32:.2e}), "
               f"unfused cuDNN stem vs plain {lib_err}")
         if (h, w) == HW:
             worst = err
@@ -313,7 +322,8 @@ def phase_superstem():
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     print(f"superstem B={BATCH} {h}x{w} bf16: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, unfused cuDNN {library_ms:.3f} ms, bound "
-          f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+          f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)"
+          f"; kernel at {100 * bms / ms:.1f}% of its bound")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": worst, "library_ms": library_ms}
 
@@ -531,7 +541,9 @@ def phase_matmul():
     batch 64 (M = 64 * 169), the engine's largest A (stage 2) and a ragged
     shape, int8 (bitwise, and bitwise against ``torch._int_mm``) and bf16
     (f32 summation bound), with times in a CUDA graph."""
-    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul, matmul_plain
+    from odc_tpu_torch.ops.cuda.matmul_kernel import (
+        matmul, matmul_plain, route,
+    )
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     m13 = BATCH * 169
@@ -547,8 +559,16 @@ def phase_matmul():
         bt = torch.randint(-127, 128, (n, k), generator=gen, device=DEVICE,
                            dtype=torch.int8)
         b = bt.t()
+        path = route(m, n, k, a.dtype, a, b)
+        want = "mma_sync" if name == "ragged" else "wgmma"
+        if path != want:
+            raise AssertionError(f"matmul int8 {name}: route {path}, "
+                                 f"expected {want}")
+        before = dict(matmul.launches_by_route)
         got, ref = matmul(a, b), matmul_plain(a, b)
         sync()
+        if matmul.launches_by_route[path] != before[path] + 1:
+            raise AssertionError(f"matmul int8 {name}: no {path} launch")
         if not torch.equal(got, ref):
             raise AssertionError(f"matmul int8 {name}: kernel != plain")
         lib = "n/a (_int_mm needs K, N multiples of 8)"
@@ -559,13 +579,19 @@ def phase_matmul():
             lib_ms = graph_ms(lambda: torch._int_mm(a, b), 5)
             lib = f"{lib_ms:.4f} ms"
         ms = graph_ms(lambda: matmul(a, b), 5)
+        older = ""
+        if path == "wgmma":  # the mma.sync route on the same operands
+            if not torch.equal(matmul(a, b, path="mma_sync"), ref):
+                raise AssertionError(f"matmul int8 {name}: mma_sync != plain")
+            old_ms = graph_ms(lambda: matmul(a, b, path="mma_sync"), 5)
+            older = f", mma_sync route {old_ms:.4f} ms"
         plain_ms = time_ms(lambda: matmul_plain(a, b), 3, warmup=1)
         nbytes, ops = _mm_bound(m, k, n, 1, 4)
         bms, by = bound_ms(nbytes, ops, INT8_OPS)
-        print(f"matmul int8 {name} M={m} K={k} N={n}: bitwise equal to plain"
-              f"{' and _int_mm' if lib_ms is not None else ''}; kernel "
-              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.3f}"
-              f" ms, _int_mm {lib}, bound {bms:.4f} ms ({by})")
+        print(f"matmul int8 {name} M={m} K={k} N={n}, route {path}: bitwise "
+              f"equal to plain{' and _int_mm' if lib_ms is not None else ''};"
+              f" kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS){older}, plain "
+              f"{plain_ms:.3f} ms, _int_mm {lib}, bound {bms:.4f} ms ({by})")
         del a, bt, b, got, ref
 
         a = torch.randn(m, k, generator=gen, device=DEVICE).bfloat16()
@@ -641,11 +667,14 @@ def phase_int8_e2e(model, requests, counters):
 
     calls = ([(requests[0], 0.9), (requests[0], gap_thre)]
              + [(requests[1], 0.9)] * (3 + TIMED_CALLS))
+    mm = counters["int8_matmul"]
     for wrapper in counters.values():
         wrapper.launches = 0
+    mm.launches_by_route = dict.fromkeys(mm.launches_by_route, 0)
     call_ms, outs = [], []
     for i, (images, conf_thre) in enumerate(calls):
         before = {k: w.launches for k, w in counters.items()}
+        routes_before = dict(mm.launches_by_route)
         t = time.perf_counter()
         out = infer(images, conf_thre=conf_thre)
         sync()
@@ -654,10 +683,16 @@ def phase_int8_e2e(model, requests, counters):
         step = {k: w.launches - before[k] for k, w in counters.items()}
         if step != {"int8_matmul": 20, "nms_suppress": 1, "superstem": 0}:
             raise AssertionError(f"int8 call {i}: launches {step}")
+        routes = {k: v - routes_before[k]
+                  for k, v in mm.launches_by_route.items()}
+        if routes != {"wgmma": 20, "mma_sync": 0}:
+            raise AssertionError(f"int8 call {i}: GEMM routes {routes}")
         if i < 3:
             outs.append((images, conf_thre, out))
     launches = {k: w.launches for k, w in counters.items()}
-    print(f"main path (int8): {len(calls)} calls, launches {launches}")
+    by_route = dict(mm.launches_by_route)
+    print(f"main path (int8): {len(calls)} calls, launches {launches}, GEMM "
+          f"launches by route {by_route}")
     for images, conf_thre, (boxes, conf, cls, keep) in outs:
         b = images.shape[0]
         if not (boxes.shape == (b, MAX_KEEP, 4) and keep.shape == (b, MAX_KEEP)
@@ -728,37 +763,46 @@ def phase_int8_e2e(model, requests, counters):
 
     with _swap_matmul(record), torch.no_grad():
         te.yolov2_int8_forward(model, images, scales=scales, stem="s2d")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
-               ops_ms=0.0, bound_ms=0.0)
-    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul
+    tot = dict(ms=0.0, older_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0)
+    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul, route
     for i, (a, b) in enumerate(recorded):
         m, k = a.shape
         n = b.shape[1]
+        if route(m, n, k, a.dtype, a, b) != "wgmma":
+            raise AssertionError(f"main-path GEMM {i}: not the wgmma route")
         got, ref = matmul(a, b), matmul_plain(a, b)
-        if not (torch.equal(got, ref) and torch.equal(torch._int_mm(a, b), ref)):
-            raise AssertionError(f"main-path GEMM {i}: kernel, plain and "
-                                 f"_int_mm disagree")
-        del got, ref
+        older = matmul(a, b, path="mma_sync")
+        if not (torch.equal(got, ref) and torch.equal(torch._int_mm(a, b), ref)
+                and torch.equal(older, ref)):
+            raise AssertionError(f"main-path GEMM {i}: kernel, plain, "
+                                 f"mma_sync route and _int_mm disagree")
+        del got, ref, older
         ms = graph_ms(lambda: matmul(a, b), 3)
+        older_ms = graph_ms(lambda: matmul(a, b, path="mma_sync"), 3)
         plain_ms = time_ms(lambda: matmul_plain(a, b), 2, warmup=1)
         lib_ms = graph_ms(lambda: torch._int_mm(a, b), 3)
         nbytes, ops = _mm_bound(m, k, n, 1, 4)
         bms, by = bound_ms(nbytes, ops, INT8_OPS)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+        for key, v in (("ms", ms), ("older_ms", older_ms),
+                       ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bms),
                        ("bytes_ms", nbytes / HBM_BPS * 1e3),
                        ("ops_ms", ops / INT8_OPS * 1e3)):
             tot[key] += v
-        print(f"  main-path GEMM {i:2d} M={m} K={k} N={n}: kernel {ms:.4f} ms "
-              f"({ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.3f}, _int_mm "
-              f"{lib_ms:.4f}, bound {bms:.4f} ({by})")
+        print(f"  main-path GEMM {i:2d} M={m} K={k} N={n}: wgmma {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS), mma_sync {older_ms:.4f}, plain "
+              f"{plain_ms:.3f}, _int_mm {lib_ms:.4f}, bound {bms:.4f} ({by})")
     del recorded
-    print(f"main-path GEMMs ({BATCH} images): kernel {tot['ms']:.3f} ms, "
-          f"plain {tot['plain_ms']:.3f}, _int_mm {tot['library_ms']:.3f}, "
-          f"bound {tot['bound_ms']:.4f} ms (operations {tot['ops_ms']:.4f}, "
-          f"bytes {tot['bytes_ms']:.4f}); all bitwise equal to plain and "
-          f"_int_mm")
-    row = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+    print(f"main-path GEMMs ({BATCH} images, all 20 on the wgmma route): "
+          f"kernel {tot['ms']:.3f} ms (mma_sync route "
+          f"{tot['older_ms']:.3f}), plain {tot['plain_ms']:.3f}, _int_mm "
+          f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.4f} ms "
+          f"(operations {tot['ops_ms']:.4f}, bytes {tot['bytes_ms']:.4f}; "
+          f"kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}% of it); all "
+          f"bitwise equal to plain and _int_mm")
+    row = {"launches_by_route": by_route,
+           "ms": tot["ms"], "plain_ms": tot["plain_ms"],
            "bound_ms": tot["bound_ms"],
            "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                         else "bytes"),
@@ -769,6 +813,7 @@ def phase_int8_e2e(model, requests, counters):
     neck_ms = []
     for i in range(3 + TIMED_CALLS // 2):
         before = {k: w.launches for k, w in counters.items()}
+        routes_before = dict(mm.launches_by_route)
         t = time.perf_counter()
         neck_infer(requests[1])
         sync()
@@ -777,6 +822,8 @@ def phase_int8_e2e(model, requests, counters):
         step = {k: w.launches - before[k] for k, w in counters.items()}
         if step != {"int8_matmul": 1, "nms_suppress": 1, "superstem": 1}:
             raise AssertionError(f"int8_neck call {i}: launches {step}")
+        if mm.launches_by_route["wgmma"] != routes_before["wgmma"] + 1:
+            raise AssertionError(f"int8_neck call {i}: GEMM not on wgmma")
     print(f"YOLOv2-416 bf16 with the int8 neck, batch {BATCH}: median "
           f"{statistics.median(neck_ms):.3f} ms/call (n={len(neck_ms)}); "
           f"1 superstem, 1 GEMM, 1 NMS launch per call")

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/cuda/`` of
 the checkout, which ``ctypes`` then loads.  The build happens at first use
 (or up front through :func:`build_all`, which starts one ``nvcc`` per source
-in parallel); a library newer than its source is reused.  A failed build
+in parallel); a library newer than its source and every ``csrc`` header the
+source includes is reused.  A failed build
 raises with the compiler's output: there is no fallback.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, List, Optional
@@ -30,7 +32,8 @@ SOURCES: Dict[str, tuple] = {
     "nms_suppress": ("nms_suppress.cu", ["-fmad=false"]),
     "superstem": ("superstem.cu", []),
     "warp_affine": ("warp_affine.cu", ["-fmad=false"]),
-    "int8_matmul": ("int8_matmul.cu", []),
+    # -ldl: the wgmma route looks up cuTensorMapEncodeTiled with dlsym.
+    "int8_matmul": ("int8_matmul.cu", ["-ldl"]),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -49,6 +52,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "int8_matmul": {
         "matmul_s8s8s32": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "matmul_s8s8s32_wgmma": [_P, _P, _P, _I, _I, _I, _P],
         "matmul_bf16bf16f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
@@ -73,10 +77,26 @@ def lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[pathlib.Path]:
+    """The ``.cu`` file of kernel ``name`` and every file it includes with
+    ``#include "..."`` from ``csrc``, transitively."""
+    todo, seen = [CSRC / SOURCES[name][0]], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _fresh(name: str) -> bool:
-    src = CSRC / SOURCES[name][0]
     out = lib_path(name)
-    return out.exists() and out.stat().st_mtime >= src.stat().st_mtime
+    return out.exists() and all(
+        out.stat().st_mtime >= src.stat().st_mtime for src in sources_of(name))
 
 
 def _command(name: str, out: pathlib.Path, verbose: bool) -> List[str]:

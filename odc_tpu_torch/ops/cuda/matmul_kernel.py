@@ -12,16 +12,25 @@ column-major, i.e. the transpose of a contiguous ``[N, K]`` tensor
 (``b = bt.t()``), so that both operands are contiguous along K.  A conv's
 weight ``[O, kh, kw, I]`` reshaped to ``[O, K]`` is that ``bt``.
 
-Bound on the card: operations at the int8 tensor-core rate (2.21e12 a
-batch-64 call of the engine, 1.12 ms at 1,979 TOPS), but the im2col
-matrices that feed it are about 9.0 GB a call (2.7 ms at 3.35 TB/s), so the
-engine's path is bound by bytes.  The kernel stages 64-byte slices of K of
-both operands in shared memory and accumulates in registers with
-``mma.sync`` (m16n8k32 s8 or m16n8k16 bf16): simple and exact, not yet
-``wgmma``/TMA or an implicit GEMM.
+Bound on the card: the engine's 20 GEMMs of a batch-64 call do 2.21e12
+int8 operations (1.12 ms at 1,979 TOPS) on about 5.9 GB of operands and
+results (1.76 ms at 3.35 TB/s); per GEMM the larger term sums to 2.14 ms.
+Two routes, picked by :func:`route` from shape, type and alignment alone:
+
+* ``"wgmma"`` (int8, ``K`` a multiple of 16, both bases 16-byte aligned,
+  which every GEMM of the engine meets): TMA loads into a ring of
+  shared-memory stages, a producer warp and two consumer warpgroups running
+  ``wgmma`` m64nNk32 s8, persistent CTAs over 128 x N tiles;
+* ``"mma_sync"`` (bf16, and int8 shapes TMA cannot describe): 64-byte K
+  slices staged through registers, ``mma.sync`` m16n8k32 s8 / m16n8k16
+  bf16.
+
+Both are exact for int8, so the result does not depend on the route.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -31,6 +40,20 @@ from odc_tpu_torch.ops.cuda import build
 MAX_K = 131072
 _LAUNCHERS = {torch.int8: "matmul_s8s8s32", torch.bfloat16: "matmul_bf16bf16f32"}
 _OUT = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
+ROUTES = ("wgmma", "mma_sync")
+
+
+def route(m: int, n: int, k: int, dtype: torch.dtype, a: torch.Tensor,
+          b: torch.Tensor) -> str:
+    """The kernel route for ``a [m, k] @ b [k, n]`` on the card: ``"wgmma"``
+    when TMA can describe both operands (int8, rows of a multiple of 16
+    bytes, 16-byte aligned bases of ``a`` and of ``b``'s ``[N, K]`` storage),
+    else ``"mma_sync"``.  Depends on nothing but its arguments."""
+    del m, n  # any M, N: TMA fills the ragged edges with zeros
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if dtype == torch.int8 and k % 16 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,7 +65,7 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(a: torch.Tensor, b: torch.Tensor, path: str) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=_OUT[a.dtype], device=a.device)
@@ -50,25 +73,35 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    kb = k * a.element_size()
-    vec = kb % 16 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     lib = build.load("int8_matmul")
     with torch.cuda.device(a.device):
-        err = getattr(lib, _LAUNCHERS[a.dtype])(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(vec),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "wgmma":
+            err = lib.matmul_s8s8s32_wgmma(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
+        else:
+            kb = k * a.element_size()
+            vec = (kb % 16 == 0 and a.data_ptr() % 16 == 0
+                   and b.data_ptr() % 16 == 0)
+            err = getattr(lib, _LAUNCHERS[a.dtype])(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(vec),
+                stream)
     build.check(err, "int8_matmul")
     matmul.launches += 1
+    matmul.launches_by_route[path] += 1
     return out
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           path: Optional[str] = None) -> torch.Tensor:
     """``a [M, K] @ b [K, N]``: int8 -> int32 (exact) or bf16 -> f32.
 
     ``a`` must be contiguous and ``b`` the transpose of a contiguous
     ``[N, K]`` tensor.  A CPU tensor runs :func:`matmul_plain`; a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel on the route :func:`route` picks, or raises.
+    ``path="mma_sync"`` asks for the older route on any input (to compare
+    the two on the card); ``path="wgmma"`` only where :func:`route` allows
+    it."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(
             f"need a [M, K] and b [K, N], got {tuple(a.shape)} and "
@@ -85,11 +118,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.t().is_contiguous()):
         raise ValueError("a must be contiguous and b the transpose of a "
                          "contiguous [N, K] tensor (b = bt.t())")
+    m, k = a.shape
+    picked = route(m, b.shape[1], k, a.dtype, a, b)
+    if path not in (None, "mma_sync", picked):
+        raise ValueError(f"route {path!r} cannot take this input (route() "
+                         f"picks {picked!r})")
     if a.device.type == "cpu":
         return matmul_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    return _launch(a, b)
+    return _launch(a, b, path or picked)
 
 
 matmul.launches = 0
+matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

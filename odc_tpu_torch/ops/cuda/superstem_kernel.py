@@ -14,10 +14,13 @@ accumulated in f32.  Unlike the TPU kernel, any H, W >= 4 works (floor
 pooling, as the unfused stem).
 
 Bound on the card: arithmetic — about 1.9 GFLOP against 1.9 MB of HBM
-traffic per 416x416 image.  The kernel keeps the full-resolution conv1 map
-and the pooled map in shared memory (one CTA per 8x8 tile of outputs), so
-only the uint8 input and the final map cross HBM; it computes on the f32
-CUDA cores (direct convolution), not yet on the tensor cores.
+traffic per 416x416 image.  The bf16 kernel (the main path) runs both
+convolutions on the tensor cores as implicit GEMMs from shared memory
+(``mma.sync`` m16n8k16, f32 sums; one CTA per 8 x 16 tile of outputs), pools
+in registers and keeps the pooled conv1 map in shared memory as bf16, so only
+the uint8 input and the final map cross HBM.  The f32 kernel, off the main
+path, is a direct convolution on the CUDA cores: the tensor cores have no
+full-f32 product.
 """
 
 from __future__ import annotations

@@ -27,7 +27,8 @@ from odc_tpu.ops import int8_engine as je
 from odc_tpu.ops.detect import jit_infer_fn
 from odc_tpu_torch.models.yolov2 import YOLOv2
 from odc_tpu_torch.ops import int8_engine as te
-from odc_tpu_torch.ops.cuda.matmul_kernel import matmul
+from odc_tpu_torch.ops.cuda import matmul_kernel
+from odc_tpu_torch.ops.cuda.matmul_kernel import matmul, route
 from odc_tpu_torch.ops.cuda.nms_kernel import suppress
 from odc_tpu_torch.ops.detect import make_infer_fn
 from torch_port_helpers import int8_parity_setup, port_model
@@ -266,3 +267,26 @@ def test_rejections(engine):
     for kw in (dict(int8_scales=engine["scales"]), dict(int8_neck=True)):
         with pytest.raises(ValueError, match="neck='quadrant'"):
             make_infer_fn(s2d_model, **kw)
+
+
+@pytest.mark.parametrize("stem, gemms", [("s2d", 20), ("s2d2", 20),
+                                         ("plain", 21)])
+def test_every_engine_gemm_takes_the_wgmma_route(engine, stem, gemms,
+                                                 monkeypatch):
+    """Every GEMM the engine hands the kernel wrapper, as the wrapper
+    receives it, is one that :func:`route` sends to the wgmma + TMA kernel
+    on the card: int8, K padded to a multiple of 32, aligned bases.  K and
+    N do not depend on the image size, so the 416x416 path's GEMMs have
+    these shapes with larger M."""
+    seen = []
+
+    def record(a, b):
+        seen.append((a.shape[0], a.shape[1], b.shape[1],
+                     route(a.shape[0], b.shape[1], a.shape[1], a.dtype, a, b)))
+        return matmul(a, b)
+
+    monkeypatch.setattr(matmul_kernel, "matmul", record)
+    _port_forward(engine, stem=stem)
+    assert len(seen) == gemms
+    assert [r for *_, r in seen] == ["wgmma"] * gemms, seen
+    assert all(k % 32 == 0 for _, k, _, _ in seen)

@@ -16,7 +16,9 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from odc_tpu_torch.ops.cuda.matmul_kernel import MAX_K, matmul, matmul_plain
+from odc_tpu_torch.ops.cuda.matmul_kernel import (
+    MAX_K, ROUTES, matmul, matmul_plain, route,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -157,3 +159,63 @@ def test_empty_shapes():
     z = matmul(torch.zeros(3, 0, dtype=torch.bfloat16),
                torch.zeros(2, 0, dtype=torch.bfloat16).t())
     assert z.dtype == torch.float32 and torch.equal(z, torch.zeros(3, 2))
+
+
+def _offset(rows, cols, dtype, shift):
+    """A contiguous ``[rows, cols]`` tensor whose base lies ``shift`` bytes
+    past an allocation's start."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    buf = torch.zeros(rows * cols * size + shift, dtype=torch.uint8)
+    return buf[shift:].view(dtype).view(rows, cols)
+
+
+@pytest.mark.parametrize(
+    "m, k, n, dtype, a_shift, b_shift, want",
+    [
+        (169, 9216, 1024, torch.int8, 0, 0, "wgmma"),      # stage-7 3x3
+        (676, 288, 64, torch.int8, 0, 0, "wgmma"),         # K % 128 != 0
+        (37, 32, 70, torch.int8, 0, 0, "wgmma"),           # ragged M, N
+        (5, 16, 3, torch.int8, 0, 0, "wgmma"),             # smallest TMA row
+        (1000, 300, 70, torch.int8, 0, 0, "mma_sync"),     # K bytes % 16 != 0
+        (64, 40, 64, torch.int8, 0, 0, "mma_sync"),        # K bytes % 16 == 8
+        (64, 64, 64, torch.int8, 16, 48, "wgmma"),         # 16-byte offsets
+        (64, 64, 64, torch.int8, 8, 0, "mma_sync"),        # misaligned a
+        (64, 64, 64, torch.int8, 0, 4, "mma_sync"),        # misaligned b
+        (256, 512, 256, torch.bfloat16, 0, 0, "mma_sync"),  # bf16 stays
+    ],
+    ids=["large-k", "k288", "ragged-mn", "k16", "k300", "k40", "offsets16",
+         "a-misaligned", "b-misaligned", "bf16"],
+)
+def test_route(m, k, n, dtype, a_shift, b_shift, want):
+    """:func:`route` picks the wgmma + TMA kernel exactly when TMA can
+    describe both operands (int8 rows of a multiple of 16 bytes, 16-byte
+    aligned bases); the shape alone and nothing that happens at run time
+    decides.  On the CPU the wrapper still runs the plain version."""
+    a = _offset(m, k, dtype, a_shift)
+    bt = _offset(n, k, dtype, b_shift)
+    assert route(m, n, k, dtype, a, bt.t()) == want
+    assert want in ROUTES
+    counts = dict(matmul.launches_by_route)
+    if m * k <= 1 << 16:
+        assert matmul(a, bt.t()).shape == (m, n)
+    assert matmul.launches_by_route == counts == dict.fromkeys(ROUTES, 0)
+
+
+@pytest.mark.parametrize("dtype, k, path, ok", [
+    (torch.int8, 64, "mma_sync", True), (torch.int8, 64, "wgmma", True),
+    (torch.int8, 300, "wgmma", False), (torch.bfloat16, 64, "wgmma", False),
+    (torch.int8, 64, "tma", False)],
+    ids=["older-route", "picked-route", "wgmma-k300", "wgmma-bf16",
+         "unknown"])
+def test_explicit_route(dtype, k, path, ok):
+    """``path=`` may ask for the mma.sync route on any input, and for the
+    wgmma route only where :func:`route` picks it; anything else raises
+    before a launch."""
+    a = torch.ones(8, k, dtype=dtype)
+    bt = torch.ones(4, k, dtype=dtype)
+    if ok:
+        assert torch.equal(matmul(a, bt.t(), path=path),
+                           matmul_plain(a, bt.t()))
+    else:
+        with pytest.raises(ValueError, match="cannot take"):
+            matmul(a, bt.t(), path=path)
