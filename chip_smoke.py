@@ -21,11 +21,11 @@ card, then drives the three main paths, each with the launch counts set to
   model; then the ``int8_neck`` path (fused stem, int8 neck: 1 superstem,
   1 GEMM, 1 NMS launch per call);
 * training — YOLOv2-416 bf16 at batch 32 through ``Trainer.fit`` with
-  in-step device augmentation (warp kernel -> color -> box transform ->
-  assign -> forward with batch-statistics BN -> loss -> backward -> SGD),
-  two epochs of four steps on an in-memory synthetic dataset, checking that
-  the warp kernel launched once per step, that the state moved, and that
-  the checkpoint restores it.
+  in-step device augmentation (warp kernel on the uint8 batch -> color ->
+  box transform -> assign -> forward with batch-statistics BN -> loss ->
+  backward -> SGD), two epochs of four steps on an in-memory synthetic
+  dataset, checking that the warp kernel launched once per step, that the
+  state moved, and that the checkpoint restores it.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with each kernel's launches, error and times, and as its last line
@@ -151,9 +151,12 @@ def _candidates(gen, batch, n, objects=24):
 
 
 def phase_nms():
-    """Kernel vs plain suppression on the card, identical keep masks."""
+    """Kernel vs plain suppression on the card, identical keep masks: on
+    the main path's candidates, then in direct calls at edge-case K and B;
+    times beside the launch floor."""
     from odc_tpu_torch.core.boxes import iou
     from odc_tpu_torch.core.nms import sorted_candidates
+    from odc_tpu_torch.ops.cuda import build
     from odc_tpu_torch.ops.cuda.nms_kernel import suppress, suppress_plain
 
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -187,19 +190,71 @@ def phase_nms():
     if suppress(pair, ones, thr).tolist() != [[True, False]]:
         raise AssertionError("NMS kernel: IoU == threshold did not suppress")
 
+    # Direct calls at every K the kernel's word layout distinguishes (one
+    # partial word, one full word less or more a box, the main path's 64,
+    # the largest 1024) and batches below, at and above the 132 SMs, with
+    # valid masks that are not prefixes, empty, and all kept.
+    for k in (1, 31, 33, 64, 1024):
+        for b in (1, 64, 200):
+            boxes_k, _ = _candidates(gen, b, k)
+            disjoint = torch.arange(k, dtype=torch.float32) * 20.0
+            disjoint = torch.stack([disjoint, disjoint, disjoint + 10,
+                                    disjoint + 10], -1).expand(b, k, 4)
+            cases = {
+                "random valid": (boxes_k, torch.rand(b, k, generator=gen) < 0.6),
+                "all invalid": (boxes_k, torch.zeros(b, k, dtype=torch.bool)),
+                "all kept": (disjoint, torch.ones(b, k, dtype=torch.bool)),
+            }
+            kept = {}
+            for name, (bx, vd) in cases.items():
+                bx = bx.contiguous().to(DEVICE)
+                vd = vd.contiguous().to(DEVICE)
+                keep = suppress(bx, vd, 0.5)
+                plain = suppress_plain(bx, vd, 0.5)
+                if not torch.equal(keep, plain):
+                    raise AssertionError(f"NMS kernel != plain: {name}, K={k}, "
+                                         f"B={b}")
+                if name == "all kept" and not bool(keep.all()):
+                    raise AssertionError(f"NMS: disjoint boxes dropped, K={k}")
+                kept[name] = f"{int(keep.sum())}/{int(vd.sum())}"
+            print(f"nms direct K={k} B={b}: kept {kept}, identical to plain")
+
     _, cand, surv = sorted_candidates(dboxes, dconf, dconf >= 0.5, MAX_KEEP)
     call_ms = time_ms(lambda: suppress(cand, surv, 0.5), 200)
     plain_call_ms = time_ms(lambda: suppress_plain(cand, surv, 0.5), 10)
     ms = graph_ms(lambda: suppress(cand, surv, 0.5), 100)
     plain_ms = graph_ms(lambda: suppress_plain(cand, surv, 0.5), 5)
     b, k = surv.shape
+    # Where the time goes: an empty kernel with the same grid (the launch
+    # floor), the kernel with nothing valid (loads and stores only), and
+    # with every box kept (a walk step per candidate, the worst case).
+    lib = build.load("nms_suppress")
+
+    def floor_launch():
+        build.check(lib.nms_launch_floor(
+            b, k, torch.cuda.current_stream().cuda_stream), "nms_launch_floor")
+
+    floor_ms = graph_ms(floor_launch, 100)
+    none_valid = torch.zeros_like(surv)
+    empty_ms = graph_ms(lambda: suppress(cand, none_valid, 0.5), 100)
+    disjoint = torch.arange(k, dtype=torch.float32, device=DEVICE) * 20.0
+    disjoint = torch.stack([disjoint, disjoint, disjoint + 10, disjoint + 10],
+                           -1).expand(b, k, 4).contiguous()
+    all_valid = torch.ones_like(surv)
+    all_kept_ms = graph_ms(lambda: suppress(disjoint, all_valid, 0.5), 100)
     nbytes = b * k * (16 + 1 + 1)
     flops = b * (k * (k - 1) / 2 * 14 + k * 3)
     bms, by = bound_ms(nbytes, flops, F32_FLOPS)
-    print(f"nms B={b} K={k}, device time per call in a CUDA graph: kernel "
+    n_kept = int(suppress(cand, surv, 0.5).sum())
+    print(f"nms B={b} K={k} ({int(surv.sum())} valid, {n_kept} kept), "
+          f"device time per call in a CUDA graph: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms; per call from Python: "
           f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; bound "
           f"{bms:.6f} ms ({by})")
+    print(f"nms B={b} K={k} in a CUDA graph: launch floor (empty kernel, "
+          f"same grid) {floor_ms:.4f} ms; nothing valid {empty_ms:.4f} ms; "
+          f"all {k} kept (disjoint boxes) {all_kept_ms:.4f} ms; main "
+          f"inputs {ms:.4f} ms, {ms - floor_ms:.4f} ms above the floor")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": 0.0, "library_ms": None}
 
@@ -847,10 +902,50 @@ def _inverse_maps(hw, specs):
     return torch.linalg.inv(ms).float().contiguous()
 
 
+def _shear_maps(hw, shear):
+    """Inverse maps [12, 3, 3] f32 about the canvas center whose two pass
+    slopes sit at the shift bound: q1 = b/d and c each +-``shear``, with no
+    flip, a horizontal and a vertical flip."""
+    h, w = hw
+    cx, cy = (w - 1) / 2, (h - 1) / 2
+    maps = []
+    for q1 in (shear, -shear):
+        for c in (shear, -shear):
+            for sx, sy in ((1.0, 1.0), (-1.0, 1.0), (1.0, -1.0)):
+                d = sy
+                b = q1 * d
+                a = sx + q1 * c  # p = a - q1*c = sx
+                maps.append([[a, b, cx - a * cx - b * cy],
+                             [c, d, cy - c * cx - d * cy], [0.0, 0.0, 1.0]])
+    return torch.tensor(maps, dtype=torch.float32)
+
+
+def _check_warp(warp_affine, warp_affine_plain, images, m_invs, max_shear,
+                exact, tol, what):
+    """Kernel (f32 and uint8 routes) vs plain on uint8-valued ``images``,
+    the first ``exact`` images bitwise; returns the f32 route's output, the
+    plain version's and their largest difference."""
+    got = warp_affine(images, m_invs, max_shear)
+    got_u8 = warp_affine(images.to(torch.uint8), m_invs, max_shear)
+    ref = warp_affine_plain(images, m_invs, max_shear)
+    sync()
+    err = float((got - ref).abs().max())
+    if got.shape != ref.shape or not err <= tol:
+        raise AssertionError(f"warp {what}: max |kernel - plain| {err}")
+    if not torch.equal(got[:exact], ref[:exact]):
+        raise AssertionError(f"warp {what}: identity/flips not exact")
+    if got_u8.dtype != torch.float32 or not torch.equal(got_u8, got):
+        raise AssertionError(f"warp {what}: uint8 route != f32 route")
+    return got, ref, err
+
+
 def phase_warp():
     """Kernel vs plain two-pass warp on the card: the augmentation's corner
-    cases at the training shape and at odd sizes, then a sampled batch of
-    32 at 416x416, which is also the timed shape."""
+    cases at the training shape and at odd sizes; single images at 4x4,
+    17x33 and 416x416 with C = 1..4, slopes at the shift bound with each
+    flip and a shift that leaves whole tiles in the zero fill; the uint8
+    route bitwise equal to the f32 route throughout; then a sampled batch
+    of 32 at 416x416, which is also the timed shape."""
     import torch.nn.functional as F
 
     from odc_tpu_torch.ops.augment import (
@@ -871,14 +966,9 @@ def phase_warp():
         # Pixels in 1..255: a zero in the output is zero fill.
         images = torch.randint(1, 256, (len(specs), h, w, 3), generator=gen)
         images = images.float().to(DEVICE)
-        got = warp_affine(images, m_invs, max_shear)
-        ref = warp_affine_plain(images, m_invs, max_shear)
-        sync()
+        got, ref, _ = _check_warp(warp_affine, warp_affine_plain, images,
+                                  m_invs, max_shear, 3, tol, f"{h}x{w}")
         errs = (got - ref).abs().amax(dim=(1, 2, 3)).tolist()
-        if got.shape != ref.shape or not max(errs) <= tol:
-            raise AssertionError(f"warp {h}x{w}: max |kernel - plain| {errs}")
-        if not torch.equal(got[:3], ref[:3]):
-            raise AssertionError(f"warp {h}x{w}: identity/flips not exact")
         # Content moved right by 20% and up by 20%: the vacated left band
         # and bottom band are exactly zero, the rest is not.
         band_x, band_y = int(0.2 * w) - 1, h - int(0.2 * h) + 1
@@ -891,29 +981,72 @@ def phase_warp():
         print(f"warp {len(specs)}x{h}x{w} (identity, flips, +-45 deg at 0.8 "
               f"and 1.2, +-20% shifts): max |kernel - plain| "
               f"{max(errs):.3e} (bound {tol}), zero-fill masks identical: "
-              f"{same_fill}")
+              f"{same_fill}; uint8 route bitwise equal to f32")
         worst = max(worst, max(errs))
+
+    # One image at a time: identity and flips (exact), the 12 slope-bound
+    # maps, and a shift by 60% of the size that leaves whole 32x32 tiles in
+    # the zero fill, at every channel count the kernel takes.
+    for h, w in ((4, 4), (17, 33), HW):
+        maps = torch.cat([
+            _inverse_maps((h, w), [dict(), dict(fx=-1), dict(fy=-1)]),
+            _shear_maps((h, w), max_shear),
+            _inverse_maps((h, w), [dict(tx=0.6 * w, ty=-0.6 * h)])])
+        errs = []
+        for ch in (1, 2, 3, 4):
+            images = torch.randint(1, 256, (1, h, w, ch), generator=gen)
+            images = images.float().to(DEVICE)
+            for i, m_inv in enumerate(maps.to(DEVICE)):
+                got, _, err = _check_warp(
+                    warp_affine, warp_affine_plain, images, m_inv[None],
+                    max_shear, int(i < 3), tol, f"1x{h}x{w}x{ch}")
+                errs.append(err)
+            if (h, w) == HW:
+                far = got[0]  # the last map: the 60% shift
+                tiles = far[:, : (int(0.6 * w) // 32) * 32]
+                if tiles.numel() == 0 or bool((tiles != 0).any()):
+                    raise AssertionError("warp: zero-fill tiles not zero")
+        worst = max(worst, max(errs))
+        print(f"warp 1x{h}x{w}, C = 1..4, {len(maps)}"
+              f" maps each (identity and flips exact; slopes +-{max_shear:.3f}"
+              f" with each flip; a 60% shift): max |kernel - plain| "
+              f"{max(errs):.3e} (bound {tol}); uint8 route bitwise equal")
+
+    # A 300-fold squeeze along x at 8400 columns: a tile's source rows are
+    # wider than the kernel's staging area, so it reads them from device
+    # memory instead (f32 and uint8).
+    h, w = 8, 8400
+    cx = (w - 1) / 2
+    maps = torch.tensor([[[a, 0.0, cx - a * cx], [0.0, 1.0, 0.0],
+                          [0.0, 0.0, 1.0]] for a in (300.0, -300.0)])
+    images = torch.randint(1, 256, (2, h, w, 4), generator=gen).float()
+    _, _, err = _check_warp(warp_affine, warp_affine_plain, images.to(DEVICE),
+                            maps.to(DEVICE), max_shear, 0, tol, "wide rows")
+    worst = max(worst, err)
+    print(f"warp 2x{h}x{w}x4, x squeezed 300-fold (rows too wide to stage): "
+          f"max |kernel - plain| {err:.3e} (bound {tol}); uint8 route "
+          f"bitwise equal")
 
     h, w = HW
     dgen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     params = sample_augment_params(dgen, TRAIN_BATCH, cfg, HW, DEVICE)
     m_invs = torch.linalg.inv(params.ms.double().cpu()).float().contiguous()
     m_invs = m_invs.to(DEVICE)
-    images = torch.randint(0, 256, (TRAIN_BATCH, h, w, 3), generator=gen)
-    images = images.float().to(DEVICE)
-    got = warp_affine(images, m_invs, max_shear)
-    ref = warp_affine_plain(images, m_invs, max_shear)
-    sync()
-    err = float((got - ref).abs().max())
-    if not err <= tol:
-        raise AssertionError(f"warp sampled batch: max |kernel - plain| {err}")
+    images_u8 = torch.randint(0, 256, (TRAIN_BATCH, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(DEVICE)
+    images = images_u8.float()
+    _, _, err = _check_warp(warp_affine, warp_affine_plain, images, m_invs,
+                            max_shear, 0, tol, "sampled batch")
     worst = max(worst, err)
     print(f"warp sampled batch {TRAIN_BATCH}x{h}x{w}: max |kernel - plain| "
-          f"{err:.3e} (bound {tol})")
+          f"{err:.3e} (bound {tol}); uint8 route bitwise equal to f32")
 
     call_ms = time_ms(lambda: warp_affine(images, m_invs, max_shear), 50)
-    ms = graph_ms(lambda: warp_affine(images, m_invs, max_shear), 20)
-    plain_ms = time_ms(lambda: warp_affine_plain(images, m_invs, max_shear), 5)
+    f32_ms = graph_ms(lambda: warp_affine(images, m_invs, max_shear), 20)
+    ms = graph_ms(lambda: warp_affine(images_u8, m_invs, max_shear), 20)
+    f32_again = graph_ms(lambda: warp_affine(images, m_invs, max_shear), 20)
+    plain_ms = time_ms(
+        lambda: warp_affine_plain(images_u8.float(), m_invs, max_shear), 5)
     # Context only, a DIFFERENT function: the one-shot bilinear warp.
     theta = torch.stack([
         m_invs[:, 0, :2].flatten(1), m_invs[:, 1, :2].flatten(1)], 1)
@@ -923,15 +1056,20 @@ def phase_warp():
         nchw, F.affine_grid(theta, nchw.shape, align_corners=False),
         mode="bilinear", padding_mode="zeros", align_corners=False), 20)
     pixels = TRAIN_BATCH * h * w
-    nbytes = 2 * pixels * 3 * 4 + m_invs.numel() * 4
     flops = pixels * (36 * 3 + 40)
+    f32_bms, _ = bound_ms(2 * pixels * 3 * 4 + m_invs.numel() * 4, flops,
+                          F32_FLOPS)
+    nbytes = pixels * 3 * (1 + 4) + m_invs.numel() * 4
     bms, by = bound_ms(nbytes, flops, F32_FLOPS)
-    print(f"warp B={TRAIN_BATCH} {h}x{w}x3 f32, max_shear {max_shear:.3f}: "
-          f"kernel in a CUDA graph {ms:.4f} ms, per "
-          f"call from Python {call_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
-          f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-          f"GFLOP); for context, a different function (one-shot bilinear, "
-          f"F.affine_grid + F.grid_sample): {oneshot_ms:.4f} ms")
+    print(f"warp B={TRAIN_BATCH} {h}x{w}x3, max_shear {max_shear:.3f}, in a "
+          f"CUDA graph: f32 in {f32_ms:.4f} / {f32_again:.4f} ms (bound "
+          f"{f32_bms:.4f}, {100 * f32_bms / f32_ms:.1f}% of it), uint8 in "
+          f"(the training path's route) {ms:.4f} ms (bound {bms:.4f}, "
+          f"{100 * bms / ms:.1f}% of it; {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP, by {by}); f32 per call from Python "
+          f"{call_ms:.4f} ms; plain (uint8 cast, then the two passes) "
+          f"{plain_ms:.3f} ms; for context, a different function (one-shot "
+          f"bilinear, F.affine_grid + F.grid_sample, f32): {oneshot_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": worst, "library_ms": None}
 

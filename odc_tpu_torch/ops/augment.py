@@ -181,13 +181,13 @@ def _invert_affine(ms: torch.Tensor) -> torch.Tensor:
 
 
 def _warp_images(imgs, m_invs, hw, impl: str, max_shear: float = 1.0):
-    """Batched warp dispatch.  ``impl``:
+    """Batched warp dispatch of uint8 (or f32) images, f32 out.  ``impl``:
 
     * ``"auto"`` (default): ``"kernel"`` for CUDA tensors, ``"twopass"``
       for CPU tensors;
-    * ``"kernel"``: the two-pass warp through ``ops/cuda/warp_kernel.py``
-      (the CUDA kernel for CUDA tensors; its wrapper runs the plain
-      version for CPU tensors);
+    * ``"kernel"``: the two-pass warp through ``ops/cuda/warp_kernel.py``,
+      which reads the images as they are (the CUDA kernel converts uint8
+      in registers; for CPU tensors its wrapper runs the plain version);
     * ``"twopass"``: the plain two-pass warp (``ops/warp.py``) on any
       device;
     * ``"oneshot"``: direct 4-tap bilinear gather — single-resample
@@ -201,6 +201,7 @@ def _warp_images(imgs, m_invs, hw, impl: str, max_shear: float = 1.0):
         from odc_tpu_torch.ops.cuda.warp_kernel import warp_affine
 
         return warp_affine(imgs, m_invs, max_shear=max_shear)
+    imgs = imgs.float()
     if impl == "twopass":
         return warp_affine_twopass(imgs, m_invs, hw, max_shear)
     if impl == "oneshot":
@@ -300,7 +301,7 @@ def apply_augment(
     # Derived (not hardcoded) slope bound: validates rotate_limit for the
     # two-pass backends and shrinks the shift range for small rotations.
     max_shear = warp_max_shear(cfg) if warp_impl != "oneshot" else 1.0
-    imgf = _warp_images(images.float(), m_invs, hw, warp_impl, max_shear)
+    imgf = _warp_images(images, m_invs, hw, warp_impl, max_shear)
     imgf = _color(imgf, params)
     out_boxes, out_valid = _warp_boxes(boxes, valid, params.ms, hw)
     return imgf.clamp(0, 255).to(torch.uint8), out_boxes, out_valid

@@ -42,13 +42,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "nms_suppress": {
         "nms_suppress": [_P, _P, _P, _I, _I, ctypes.c_float, _P],
+        "nms_launch_floor": [_I, _I, _P],
     },
     "superstem": {
         "superstem_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
         "superstem_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "warp_affine": {
-        "warp_affine": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "warp_affine": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "int8_matmul": {
         "matmul_s8s8s32": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -7,10 +7,11 @@ PyTorch, ``core/nms.py``); output the greedy keep mask, bitwise equal to the
 plain version (the kernel rounds every IoU op on its own, as PyTorch does).
 
 Bound on the card: neither bytes (about 1.2 KB per image at K = 64) nor
-arithmetic, but the K-step serial walk.  The kernel runs one CTA per image:
-all its threads build the K x K/32 suppression bitmask in shared memory,
-then one warp walks it with the keep mask in registers (one 32-bit word per
-lane, a warp shuffle per step), so a step costs a few instructions.
+arithmetic, but latency: the launch and a serial walk.  The kernel runs one
+CTA per image: every warp builds rows of the K x K/32 suppression bitmask
+in shared memory (a lane per candidate, a ballot per word, rows of invalid
+candidates skipped), then one warp walks it with the keep mask in registers
+(one 32-bit word per lane), jumping from kept box to kept box.
 """
 
 from __future__ import annotations
@@ -60,13 +61,16 @@ def suppress(
     """Keep mask over score-sorted candidates (see :func:`suppress_plain`).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (one CTA per image, K <= 1024) or raises."""
+    (one CTA per image, K <= 1024) or raises.  Boxes must start on a
+    16-byte boundary, as the kernel reads each box as one 16-byte load."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [B, K, 4], got {tuple(boxes.shape)}")
     if valid.shape != boxes.shape[:2] or valid.dtype != torch.bool:
         raise ValueError("valid must be a [B, K] bool tensor")
     if boxes.dtype != torch.float32:
         raise TypeError(f"boxes must be float32, got {boxes.dtype}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must start on a 16-byte boundary")
     if valid.device != boxes.device:
         raise ValueError("boxes and valid must be on the same device")
     if boxes.device.type == "cpu":

@@ -3,17 +3,21 @@ PyTorch version, and the wrapper that picks between them by device.
 
 Replaces ``odc_tpu/ops/pallas/warp_kernel.py::warp_affine_pallas``, the
 geometric backend of the in-step device augmentation.  Images
-``[B, H, W, C]`` f32 (0..255), inverse maps ``[B, 3, 3]`` and a static
-``max_shear`` give the warped ``[B, H, W, C]`` f32 batch with zero fill: the
-function of ``ops/warp.py::warp_affine_twopass`` (three taps per pass under
-shear), not the one-shot bilinear warp.
+``[B, H, W, C]`` f32 or uint8 (0..255), inverse maps ``[B, 3, 3]`` and a
+static ``max_shear`` give the warped ``[B, H, W, C]`` f32 batch with zero
+fill: the function of ``ops/warp.py::warp_affine_twopass`` (three taps per
+pass under shear), not the one-shot bilinear warp.  uint8 images give
+bitwise what their f32 copy gives; the kernel converts them in registers.
 
 Bound on the card: bytes — each image is read once and written once.  The
-kernel fuses both passes in one launch: a thread owns one output pixel,
-reads its nine source taps directly and keeps the intermediate plane out of
-memory.  The pass coefficients are computed in the kernel from the inverse
-maps, op for op as :func:`odc_tpu_torch.ops.warp.twopass_coeffs` does, so
-the wrapper is one launch and nothing else.
+kernel fuses both passes in one launch: a CTA owns a 32 x 64 output tile,
+stages the source rows it needs in shared memory (bulk copies of the TMA),
+computes each intermediate value its columns need once into column strips
+(pass X), then blends 4 adjacent outputs per thread and writes them with
+16-byte stores (pass Y).  The pass coefficients
+are computed in the kernel from the inverse maps, op for op as
+:func:`odc_tpu_torch.ops.warp.twopass_coeffs` does, so the wrapper is one
+launch and nothing else.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from odc_tpu_torch.ops.cuda import build
 from odc_tpu_torch.ops.warp import shift_kmax, warp_affine_twopass
 
 MAX_CHANNELS = 4
+MAX_IMAGE_ELEMS = 1 << 28  # H * W * C: the kernel's offsets are 32-bit
+DTYPES = (torch.float32, torch.uint8)
 
 
 def warp_affine_plain(
@@ -36,7 +42,7 @@ def warp_affine_plain(
 
 def _launch(images: torch.Tensor, m_invs: torch.Tensor, max_shear: float):
     b, h, w, ch = images.shape
-    out = torch.empty_like(images)
+    out = torch.empty(images.shape, dtype=torch.float32, device=images.device)
     if images.numel() == 0:
         return out
     lib = build.load("warp_affine")
@@ -44,6 +50,7 @@ def _launch(images: torch.Tensor, m_invs: torch.Tensor, max_shear: float):
         err = lib.warp_affine(
             images.data_ptr(), m_invs.data_ptr(), out.data_ptr(), b, h, w, ch,
             shift_kmax(h, max_shear), shift_kmax(w, max_shear),
+            int(images.dtype == torch.uint8),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "warp_affine")
@@ -54,10 +61,13 @@ def _launch(images: torch.Tensor, m_invs: torch.Tensor, max_shear: float):
 def warp_affine(
     images: torch.Tensor, m_invs: torch.Tensor, max_shear: float = 1.0
 ) -> torch.Tensor:
-    """Batched two-pass affine warp (see :func:`warp_affine_plain`).
+    """Batched two-pass affine warp (see :func:`warp_affine_plain`) of f32
+    or uint8 images, always f32 out.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (one launch per batch, C <= 4) or raises."""
+    A CPU tensor runs the plain version (on ``images.float()``); a CUDA
+    tensor launches the kernel (one launch per batch, C <= 4) or raises.
+    Images must start on a 16-byte boundary, as the kernel reads them in
+    16-byte pieces."""
     if images.dim() != 4:
         raise ValueError(f"images must be [B, H, W, C], got {tuple(images.shape)}")
     if tuple(m_invs.shape) != (images.shape[0], 3, 3):
@@ -65,17 +75,19 @@ def warp_affine(
             f"m_invs must be [B, 3, 3], got {tuple(m_invs.shape)} for "
             f"B={images.shape[0]}"
         )
-    if images.dtype != torch.float32 or m_invs.dtype != torch.float32:
+    if images.dtype not in DTYPES or m_invs.dtype != torch.float32:
         raise TypeError(
-            f"images and m_invs must be float32, got {images.dtype} and "
-            f"{m_invs.dtype}"
+            f"images must be float32 or uint8 and m_invs float32, got "
+            f"{images.dtype} and {m_invs.dtype}"
         )
+    if images.data_ptr() % 16:
+        raise ValueError("images must start on a 16-byte boundary")
     if m_invs.device != images.device:
         raise ValueError("images and m_invs must be on the same device")
     if max_shear < 0:
         raise ValueError(f"max_shear must be >= 0, got {max_shear}")
     if images.device.type == "cpu":
-        return warp_affine_plain(images, m_invs, max_shear)
+        return warp_affine_plain(images.float(), m_invs, max_shear)
     if images.device.type != "cuda":
         raise ValueError(f"unsupported device {images.device}")
     if images.shape[-1] > MAX_CHANNELS:
@@ -84,6 +96,11 @@ def warp_affine(
         )
     if images.shape[0] > 65535:
         raise ValueError(f"B={images.shape[0]} exceeds the kernel's 65535")
+    if images[0].numel() > MAX_IMAGE_ELEMS:
+        raise ValueError(
+            f"an image of {images[0].numel()} values exceeds the kernel's "
+            f"{MAX_IMAGE_ELEMS}"
+        )
     if not (images.is_contiguous() and m_invs.is_contiguous()):
         raise ValueError("images and m_invs must be contiguous")
     return _launch(images, m_invs, max_shear)

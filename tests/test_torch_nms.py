@@ -176,3 +176,113 @@ def test_suppress_rejects_bad_inputs():
             torch.zeros(1, 2, 4, dtype=torch.float64),
             torch.zeros(1, 2, dtype=torch.bool), 0.5,
         )
+
+
+def _ballot(bits):
+    """Pack bools [..., 32] into uint32 words, bit l from lane l."""
+    return (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        -1).astype(np.uint32)
+
+
+def _emulate_kernel(boxes, valid, iou_thre, seed=0):
+    """numpy emulation of ``csrc/nms_suppress.cu``: mask words formed as
+    ballots (bit l of word w is candidate 32w + l, lanes past K give 0),
+    rows of invalid candidates and words below (i+1)//32 never built (they
+    hold random garbage here, so reading one shows), then the walk word by
+    word that jumps from kept bit to kept bit."""
+    b, k = valid.shape
+    nw = (k + 31) // 32
+    pad = 32 * nw
+    iou = tboxes.pairwise_iou(torch.tensor(boxes), torch.tensor(boxes)).numpy()
+    rng = np.random.default_rng(seed)
+    keep = np.zeros((b, k), bool)
+    j = np.arange(pad)
+    for n in range(b):
+        vpad = np.zeros(pad, bool)
+        vpad[:k] = valid[n]
+        valid_words = _ballot(vpad.reshape(nw, 32))
+        hits = np.zeros((k, pad), bool)
+        hits[:, :k] = iou[n] >= iou_thre
+        hits &= j[None, :] > np.arange(k)[:, None]
+        built = _ballot(hits.reshape(k, nw, 32))
+        mask = rng.integers(0, 2**32, (k, nw), dtype=np.uint64).astype(np.uint32)
+        for i in np.flatnonzero(valid[n]):
+            first = (i + 1) // 32
+            mask[i, first:] = built[i, first:]
+        word = [int(x) for x in valid_words]
+        for w in range(nw):
+            own = [int(mask[32 * w + l, w])
+                   if l < 31 and 32 * w + l < k and (int(valid_words[w]) >> l) & 1
+                   else 0 for l in range(32)]
+            kw = rest = word[w]
+            while rest:  # one step per kept box
+                bit = (rest & -rest).bit_length() - 1  # __ffs(rest) - 1
+                kw &= ~own[bit] & 0xFFFFFFFF
+                rest = kw & ~((2 << bit) - 1) & 0xFFFFFFFF
+            word[w] = kw
+            for lane in range(w + 1, nw):  # the word's kept rows, gathered
+                drop = 0
+                for bit in range(32):
+                    if (kw >> bit) & 1:
+                        drop |= int(mask[32 * w + bit, lane])
+                word[lane] &= ~drop & 0xFFFFFFFF
+        keep[n] = [(word[i >> 5] >> (i & 31)) & 1 for i in range(k)]
+    return keep
+
+
+def _disjoint(b, k):
+    step = np.arange(k, dtype=np.float32)[:, None] * 20
+    boxes = np.concatenate([step, step, step + 10, step + 10], -1)
+    return np.broadcast_to(boxes, (b, k, 4)).copy()
+
+
+@pytest.mark.parametrize("k", [1, 31, 33, 64, 100, 1024])
+@pytest.mark.parametrize("case", ["random", "all_invalid", "all_kept", "tail"])
+def test_kernel_walk_emulation_matches_plain(k, case):
+    """The kernel's algorithm, emulated in numpy, against the plain version,
+    bitwise: valid masks that are not prefixes, K not a multiple of 32, K = 1
+    and 1024, nothing valid, and disjoint boxes (every box kept)."""
+    b = 2 if k == 1024 else 5
+    rng = np.random.default_rng(k)
+    boxes, _, _ = _dets(k + 7, k, batch=b)
+    valid = rng.uniform(size=(b, k)) < 0.6
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "all_kept":
+        boxes, valid = _disjoint(b, k), np.ones((b, k), bool)
+    elif case == "tail":  # valid only past the first word: a non-prefix
+        valid[:, : min(k - 1, 32)] = False
+    got = _emulate_kernel(boxes, valid, 0.5)
+    ref = suppress_plain(torch.tensor(boxes), torch.tensor(valid), 0.5).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if case == "all_kept":
+        assert got.all()
+    if case == "random" and k >= 64:
+        assert got.sum() < valid.sum()  # suppression happened
+
+
+def test_kernel_walk_emulation_matches_pallas_interpret():
+    """At K = 128, the emulated kernel against the Pallas kernel (interpret
+    mode) on score-sorted candidates whose valid mask is not a prefix."""
+    boxes, conf, _ = _dets(5, 128, batch=4)
+    order = np.argsort(-conf, axis=-1, kind="stable")
+    cand = np.take_along_axis(boxes, order[..., None], axis=1)
+    valid = np.random.default_rng(5).uniform(size=(4, 128)) < 0.7
+    ref = np.asarray(pallas_suppress(
+        jnp.asarray(cand), jnp.asarray(valid), 0.5, interpret=True
+    ))
+    np.testing.assert_array_equal(_emulate_kernel(cand, valid, 0.5), ref)
+    assert ref.sum() < valid.sum()
+
+
+def test_suppress_rejects_misaligned_boxes():
+    """The kernel reads each box as one 16-byte load; the wrapper refuses
+    boxes that do not start on a 16-byte boundary, on any device."""
+    buf = torch.zeros(2 * 4 + 1)
+    boxes = buf[1:].view(1, 2, 4)
+    assert boxes.is_contiguous() and boxes.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        suppress(boxes, torch.ones(1, 2, dtype=torch.bool), 0.5)
+    with pytest.raises(TypeError):
+        suppress(torch.zeros(1, 2, 4, dtype=torch.float16),
+                 torch.ones(1, 2, dtype=torch.bool), 0.5)

@@ -224,3 +224,56 @@ def test_twopass_coeffs_match_jax():
     np.testing.assert_allclose(
         torch.stack(got, -1).numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6
     )
+
+
+def test_uint8_input_equals_its_f32_copy(batch, plain_out):
+    """uint8 images: the wrapper's CPU route gives, bitwise, the plain
+    version on ``images.float()`` (the kernel converts in registers, which
+    is exact); the output is f32 either way."""
+    images, mis = batch
+    u8 = torch.tensor(np.round(images).astype(np.uint8))
+    got = warp_affine(u8, torch.tensor(mis))
+    assert got.dtype == torch.float32
+    ref = warp_affine_plain(u8.float(), torch.tensor(mis))
+    assert torch.equal(got, ref)
+    assert torch.equal(warp_affine(u8.float(), torch.tensor(mis)), ref)
+
+
+def test_uint8_input_matches_pallas_interpret():
+    """Against the TPU kernel on the same uint8 images (interpret mode): it
+    casts them to f32 inside and its output back to uint8 (truncation).
+    The port's f32 output matches the Pallas kernel on the f32 copy within
+    the 5e-3 of ``test_plain_matches_pallas_interpret``, and its truncation
+    matches the Pallas uint8 output within one level in fewer than 1e-3 of
+    the values (a value at an integer boundary may truncate either way), as
+    ``tests/test_torch_augment.py`` holds uint8 images."""
+    mis = np.stack([_minv(**kw) for kw in CASES[:6]])
+    rng = np.random.default_rng(7)
+    u8 = rng.integers(0, 256, (len(mis), H, W, 3), dtype=np.uint8)
+    got = warp_affine(torch.tensor(u8), torch.tensor(mis)).numpy()
+    ref_f32 = np.asarray(warp_affine_pallas(
+        jnp.asarray(u8.astype(np.float32)), jnp.asarray(mis), interpret=True))
+    np.testing.assert_allclose(got, ref_f32, atol=5e-3, rtol=0)
+    ref_u8 = np.asarray(warp_affine_pallas(
+        jnp.asarray(u8), jnp.asarray(mis), interpret=True))
+    assert ref_u8.dtype == np.uint8
+    diff = np.abs(got.astype(np.uint8).astype(np.int32) - ref_u8.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 1e-3
+
+
+def test_wrapper_rejects_unsupported_inputs(batch):
+    """Types the kernel does not read, and images off a 16-byte boundary
+    (the kernel reads them in 16-byte pieces), raise on any device."""
+    images, mis = batch
+    tmis = torch.tensor(mis)
+    for dtype in (torch.float64, torch.int32, torch.float16):
+        with pytest.raises(TypeError):
+            warp_affine(torch.tensor(images).to(dtype), tmis)
+    with pytest.raises(TypeError):
+        warp_affine(torch.tensor(images), tmis.double())
+    flat = torch.zeros(images.size + 1, dtype=torch.uint8)
+    shifted = flat[1:].view(images.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        warp_affine(shifted, tmis)
