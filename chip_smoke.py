@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the ported paths from ``odc_tpu_torch/csrc``
 with ``nvcc``, holds each kernel against its plain PyTorch version on the
-card, then drives the three main paths, each with the launch counts set to
-0 just before and read just after:
+card, then drives the main paths, each with the launch counts set to 0
+just before and read just after:
 
 * serving — YOLOv2-416 bf16 end-to-end inference through ``make_infer_fn``
   (fused superstem -> Darknet-19 -> neck -> head -> decode -> NMS) on a few
@@ -20,6 +20,16 @@ card, then drives the three main paths, each with the launch counts set to
   bitwise equal to a plain-GEMM head, and the int8 head against the f32
   model; then the ``int8_neck`` path (fused stem, int8 neck: 1 superstem,
   1 GEMM, 1 NMS launch per call);
+* native-size evaluation — the same model and scales through
+  ``make_native_infer_fn`` on two padded VOC-shaped buckets of 16 (384x512
+  and 512x384, odd and bucket-filling images), bf16 and int8, checking 1
+  NMS launch a call, 20 GEMMs (all wgmma) an int8 call and no superstem;
+  masked heads against native-size runs (the plain-stem int8 neck codes bit
+  for bit), the NMS and each GEMM against their plain versions on this
+  path's inputs, and the superstem at a native 375x500; then both
+  evaluators end to end on 64 synthetic VOC JPEGs at three sizes, and the
+  int8 engine's mAP@.5 on a YOLOv2 overfit at 96x96 (bf16 above 0.3, int8
+  at most 0.15 below it);
 * training — YOLOv2-416 bf16 at batch 32 through ``Trainer.fit`` with
   in-step device augmentation (warp kernel on the uint8 batch -> color ->
   box transform -> assign -> forward with batch-statistics BN -> loss ->
@@ -882,7 +892,7 @@ def phase_int8_e2e(model, requests, counters):
     print(f"YOLOv2-416 bf16 with the int8 neck, batch {BATCH}: median "
           f"{statistics.median(neck_ms):.3f} ms/call (n={len(neck_ms)}); "
           f"1 superstem, 1 GEMM, 1 NMS launch per call")
-    return launches, img_s, row
+    return launches, img_s, row, scales
 
 
 def _inverse_maps(hw, specs):
@@ -1309,6 +1319,435 @@ def phase_train(counters):
     return launches, img_s
 
 
+# Native-size eval: two VOC-shaped buckets of 16 (landscape, portrait), each
+# with a bucket-filling image and odd extents; the first six sizes of each
+# are fixed, the rest drawn in the bucket's range from the seed.
+NATIVE_BATCH = 16
+NATIVE_BUCKETS = {
+    (384, 512): [(384, 512), (375, 500), (366, 500), (353, 481), (375, 499),
+                 (383, 511)],
+    (512, 384): [(512, 384), (500, 375), (500, 366), (481, 353), (499, 375),
+                 (511, 383)],
+}
+NATIVE_TIMED = 10
+# Eval: 64 synthetic VOC val images at three VOC sizes.
+EVAL_SIZES = ((375, 500, 22), (500, 375, 21), (333, 500, 21))
+# int8 accuracy on a trained model: overfit 8 images at 96x96.
+MAP_HW, MAP_STEPS = (96, 96), 80
+
+
+def _native_bucket(bucket, sizes, gen):
+    """A padded bucket batch of random images: (uint8 [B, H, W, 3] on the
+    card, valid_hw int32 numpy, the native images on the card)."""
+    bh, bw = bucket
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,),
+                                                  generator=gen)))
+    sizes = list(sizes)
+    while len(sizes) < NATIVE_BATCH:
+        sizes.append((int(rng.integers(bh - 31, bh + 1)),
+                      int(rng.integers(bw - 31, bw + 1))))
+    imgs = torch.zeros((NATIVE_BATCH, bh, bw, 3), dtype=torch.uint8)
+    natives = []
+    for j, (h, w) in enumerate(sizes):
+        img = torch.randint(0, 256, (h, w, 3), generator=gen,
+                            dtype=torch.uint8)
+        imgs[j, :h, :w] = img
+        natives.append(img.to(DEVICE))
+    return imgs.to(DEVICE), np.array(sizes, np.int32), natives
+
+
+def _valid_conf(conf, vhw):
+    """The confidences of the cells inside each image's native grid."""
+    return torch.cat([conf[j, : h // 32, : w // 32].flatten()
+                      for j, (h, w) in enumerate(vhw)])
+
+
+@contextlib.contextmanager
+def _recording_suppress(calls: list):
+    """Record the (candidates, survivors, threshold) the batched NMS hands
+    the suppression kernel's wrapper."""
+    from odc_tpu_torch.core import nms
+
+    real = nms.suppress
+
+    def record(cand, surv, thr):
+        calls.append((cand, surv, thr))
+        return real(cand, surv, thr)
+
+    nms.suppress = record
+    try:
+        yield
+    finally:
+        nms.suppress = real
+
+
+def phase_native(model, scales, counters):
+    """Native-size inference over padded buckets (the evaluation path of
+    ``evaluate_batched_native``): two VOC-shaped buckets of 16 through
+    ``make_native_infer_fn``, bf16 and int8 (s2d stem); ``counters`` are
+    zeroed just before the calls and read just after.  Then the checks:
+    masked heads against native-size runs, bitwise int8 neck codes with the
+    plain stem, NMS and GEMMs against their plain versions on this path's
+    inputs, the superstem at a native odd size."""
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops import int8_engine as te
+    from odc_tpu_torch.ops.cuda.matmul_kernel import (
+        matmul, matmul_plain, route,
+    )
+    from odc_tpu_torch.ops.cuda.nms_kernel import suppress, suppress_plain
+    from odc_tpu_torch.ops.cuda.superstem_kernel import (
+        superstem, superstem_plain,
+    )
+    from odc_tpu_torch.ops.detect import make_native_infer_fn, stem_weights
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    buckets = {b: _native_bucket(b, sizes, gen)
+               for b, sizes in NATIVE_BUCKETS.items()}
+
+    @torch.no_grad()
+    def gap_threshold(prec, imgs, vhw):
+        """A runtime threshold in the largest gap of the bucket's candidates
+        (8 to 48 survivors an image), from a masked forward that launches
+        no counted kernel (the int8 one through the plain GEMM)."""
+        if prec == "bf16":
+            y = model(imgs, valid_hw=vhw)
+        else:
+            with _swap_matmul(lambda real, a, b: matmul_plain(a, b)):
+                y = te.yolov2_int8_forward(model, imgs, scales=scales,
+                                           stem="s2d", valid_hw=vhw)
+        conf = _valid_conf(torch.sigmoid(y[..., 4]), vhw)
+        return _gap_threshold(conf, 8 * NATIVE_BATCH, 48 * NATIVE_BATCH)
+
+    infers = {
+        "bf16": make_native_infer_fn(model, 0.9, 0.5, MAX_KEEP),
+        "int8": make_native_infer_fn(model, 0.9, 0.5, MAX_KEEP,
+                                     int8_scales=scales, int8_stem="s2d"),
+    }
+    want = {"bf16": {"int8_matmul": 0, "nms_suppress": 1, "superstem": 0},
+            "int8": {"int8_matmul": 20, "nms_suppress": 1, "superstem": 0}}
+    mm = counters["int8_matmul"]
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    mm.launches_by_route = dict.fromkeys(mm.launches_by_route, 0)
+    # Each bucket's first call (the first of its shapes on this path, at
+    # the product threshold 0.9), then NATIVE_TIMED calls at the gap
+    # threshold.
+    times, outs, thre, n_calls = {}, {}, {}, 0
+    for prec, infer in infers.items():
+        for b, (imgs, vhw, _) in buckets.items():
+            call_ms = []
+            for i in range(1 + NATIVE_TIMED):
+                if i == 1:
+                    thre[b, prec] = gap_threshold(prec, imgs, vhw)
+                before = {k: w.launches for k, w in counters.items()}
+                routes_before = dict(mm.launches_by_route)
+                t = time.perf_counter()
+                out = infer(imgs, vhw, conf_thre=thre[b, prec] if i else 0.9)
+                sync()
+                call_ms.append((time.perf_counter() - t) * 1e3)
+                n_calls += 1
+                step = {k: w.launches - before[k] for k, w in counters.items()}
+                routes = {k: v - routes_before[k]
+                          for k, v in mm.launches_by_route.items()}
+                if step != want[prec] or routes["mma_sync"]:
+                    raise AssertionError(f"native {prec} {b} call {i}: "
+                                         f"launches {step}, routes {routes}")
+            times[prec, b] = call_ms
+            outs[prec, b] = out
+    launches = {k: w.launches for k, w in counters.items()}
+    print(f"native path: {n_calls} calls of buckets {list(buckets)} x "
+          f"{NATIVE_BATCH}, bf16 and int8; launches {launches}, GEMM launches "
+          f"by route {dict(mm.launches_by_route)}; 1 NMS launch a call, 20 "
+          f"GEMMs (all wgmma) an int8 call, no superstem")
+
+    summary = {}
+    for (prec, b), call_ms in times.items():
+        med = statistics.median(call_ms[1:])
+        img_s = NATIVE_BATCH / med * 1e3
+        summary[f"{prec} {b[0]}x{b[1]}"] = (round(med, 3), round(img_s, 1))
+        boxes, conf, lbl, score, keep = outs[prec, b]
+        vhw = buckets[b][1]
+        if not all(bool(torch.isfinite(t).all()) for t in (boxes, conf, score)):
+            raise AssertionError(f"native {prec} {b}: non-finite outputs")
+        if (keep.shape != (NATIVE_BATCH, MAX_KEEP) or lbl.dtype != torch.int32
+                or bool((conf[keep] < thre[b, prec]).any())):
+            raise AssertionError(f"native {prec} {b}: bad outputs")
+        # Kept boxes lie in each image's own frame (loosely: centers inside).
+        cx = (boxes[..., 0] + boxes[..., 2]) / 2
+        cy = (boxes[..., 1] + boxes[..., 3]) / 2
+        hw = torch.tensor(vhw, device=DEVICE, dtype=torch.float32)
+        inside = ((cx <= hw[:, 1:2] + 1e-3) & (cy <= hw[:, 0:1] + 1e-3)
+                  & (cx >= 0) & (cy >= 0))
+        if not bool(inside[keep].all()) or not bool(keep.any()):
+            raise AssertionError(f"native {prec} {b}: box centers off-image")
+        print(f"native {prec} bucket {b[0]}x{b[1]}, batch {NATIVE_BATCH}: first "
+              f"call (conf 0.9) {call_ms[0]:.3f} ms, then at conf "
+              f"{thre[b, prec]:.6f} median {med:.3f} ms/call (min {min(call_ms[1:]):.3f}, max "
+              f"{max(call_ms[1:]):.3f}, n={len(call_ms) - 1}) -> {img_s:.1f} "
+              f"img/s; kept per image {keep.sum(1).tolist()}")
+    first = next(iter(buckets))
+    imgs, vhw, natives = buckets[first]
+    for prec, infer in infers.items():
+        print(f"native {prec}, bucket {first[0]}x{first[1]}:", end=" ")
+        _profile(lambda: infer(imgs, vhw, conf_thre=thre[first, prec]))
+
+    # Masked heads against native-size runs, 3 images a bucket: f32 within
+    # 1e-3 of the head's range (the f32 forward tolerance of the CPU tests:
+    # another shape, another summation order); bf16 within 2x the model's
+    # bf16 noise (the bf16 native run against the f32 one), as in
+    # phase_e2e; the int8 s2d head within 5% of its range (the JAX
+    # package's budget: the lifted stem is a bf16 conv whose codes may flip
+    # by one level across shapes); the plain-stem int8 neck codes bitwise.
+    failures = []
+    model32 = YOLOv2(dtype=torch.float32, device=DEVICE, seed=SEED)
+    model32.load_state_dict(model.state_dict())
+    model32.eval()
+    for b, (b_imgs, b_vhw, b_natives) in buckets.items():
+        with torch.no_grad():
+            y16 = model(b_imgs, valid_hw=b_vhw)
+            y32 = model32(b_imgs, valid_hw=b_vhw)
+            plain = te.yolov2_int8_forward(model, b_imgs, scales=scales,
+                                           stem="plain", valid_hw=b_vhw,
+                                           stop_after=21)
+            y8 = te.yolov2_int8_forward(model, b_imgs, scales=scales,
+                                        stem="s2d", valid_hw=b_vhw)
+        for j in (0, 1, 2):
+            h, w = (int(v) for v in b_vhw[j])
+            gh, gw = h // 32, w // 32
+            x = b_natives[j][None]
+            with torch.no_grad():
+                n16, n32 = model(x), model32(x)
+                n_plain = te.yolov2_int8_forward(model, x, scales=scales,
+                                                 stem="plain", stop_after=21)
+                n8 = te.yolov2_int8_forward(model, x, scales=scales,
+                                            stem="s2d")
+            err32 = float((y32[j, :gh, :gw] - n32[0]).abs().max())
+            err16 = float((y16[j, :gh, :gw] - n16[0]).abs().max())
+            noise = float((n16 - n32).abs().max())
+            err8 = float((y8[j, :gh, :gw] - n8[0]).abs().max())
+            rng8 = float(n8.abs().max())
+            codes = torch.equal(plain[j, :gh, :gw], n_plain[0])
+            rng32 = float(n32.abs().max())
+            print(f"native {h}x{w} in bucket {b[0]}x{b[1]}: masked vs native "
+                  f"head max |diff| f32 {err32:.2e} (bound {1e-3 * rng32:.2e}),"
+                  f" bf16 {err16:.4f} (bound 2n = {2 * noise:.4f}), int8 s2d "
+                  f"{err8:.4f} (bound 5% of {rng8:.3f}); int8 plain-stem neck "
+                  f"codes bitwise equal: {codes}")
+            if not (err32 <= 1e-3 * rng32 and err16 <= 2 * noise
+                    and err8 <= 0.05 * rng8 and codes):
+                failures.append(f"{h}x{w}")
+    del model32, y16, y32, plain, y8
+    if failures:
+        raise AssertionError(f"native: masked != native for {failures}")
+
+    # NMS on this path's own candidates, and each GEMM of one int8 call,
+    # on the first bucket.
+    calls = []
+    with _recording_suppress(calls):
+        for prec, infer in infers.items():
+            infer(imgs, vhw, conf_thre=thre[first, prec])
+    for cand, surv, thr in calls:
+        keep = suppress(cand, surv, thr)
+        if not torch.equal(keep, suppress_plain(cand, surv, thr)):
+            raise AssertionError("native NMS kernel != plain")
+        print(f"native NMS B={cand.shape[0]} K={cand.shape[1]}: "
+              f"{int(surv.sum())} survivors, {int(keep.sum())} kept, kernel "
+              f"== plain")
+    recorded = []
+
+    def record(real, a, b):
+        recorded.append((a, b))
+        return real(a, b)
+
+    with _swap_matmul(record), torch.no_grad():
+        te.yolov2_int8_forward(model, imgs, scales=scales, stem="s2d",
+                               valid_hw=vhw)
+    for i, (a, b) in enumerate(recorded):
+        m, k = a.shape
+        if route(m, b.shape[1], k, a.dtype, a, b) != "wgmma":
+            raise AssertionError(f"native GEMM {i}: not the wgmma route")
+        if not torch.equal(matmul(a, b), matmul_plain(a, b)):
+            raise AssertionError(f"native GEMM {i}: kernel != plain")
+    print(f"native int8 call: {len(recorded)} GEMMs, M from "
+          f"{min(a.shape[0] for a, _ in recorded)} to "
+          f"{max(a.shape[0] for a, _ in recorded)}, all wgmma, each bitwise "
+          f"equal to the plain GEMM")
+    if len(recorded) != 20:
+        raise AssertionError("native int8 call: not 20 GEMMs")
+    del recorded
+
+    # The superstem at a native odd size (Detector.detect feeds these): the
+    # first bucket's second image, 375x500.
+    w1, w2 = stem_weights(model)
+    x = natives[1][None].expand(4, -1, -1, -1).contiguous()
+    with torch.no_grad():
+        got, ref = superstem(x, w1, w2), superstem_plain(x, w1, w2)
+    err, tol = float((got.float() - ref.float()).abs().max()), _bf16_ulp(ref)
+    print(f"superstem at native {x.shape[1]}x{x.shape[2]} (B=4): max |kernel "
+          f"- plain| {err} (bound 1 ulp = {tol})")
+    if got.shape != ref.shape or not err <= tol:
+        raise AssertionError("superstem at a native odd size beyond 1 ulp")
+    return summary
+
+
+def _voc_val(sizes, root):
+    """One VOC val dataset of synthetic JPEGs at several sizes:
+    ``make_synthetic_voc`` once per size."""
+    from odc_tpu_torch.data.voc import VOC, VOCDataset, make_synthetic_voc
+
+    paths, annots = [], []
+    for k, (h, w, n) in enumerate(sizes):
+        sub = os.path.join(root, f"s{k}")
+        make_synthetic_voc(sub, num_train=0, num_val=n, image_hw=(h, w),
+                           seed=SEED + k)
+        voc = VOC(dataset_dir=sub)
+        paths += voc.val_img_path_list
+        annots += voc.val_annot_list
+    return VOCDataset(paths, annots)
+
+
+def _map_scores(result, cls_list):
+    aps = np.stack([result[c] for c in cls_list])
+    if aps.shape != (len(cls_list), 10) or not np.isfinite(aps).all():
+        raise AssertionError("mAP vectors malformed")
+    return float(aps[:, 0].mean()), float(aps.mean())
+
+
+def phase_eval(model, scales, counters):
+    """Both evaluators end to end on 64 synthetic VOC val JPEGs at three
+    sizes, host decode included: ``evaluate_batched`` (416x416, batch 64)
+    and ``evaluate_batched_native`` (buckets of 16), bf16 and int8."""
+    from odc_tpu_torch.core.ap import APAccumulator
+    from odc_tpu_torch.eval import (
+        Detector, evaluate_batched, evaluate_batched_native,
+    )
+    from odc_tpu_torch.eval.evaluator import _resize_host
+
+    with tempfile.TemporaryDirectory() as root:
+        dataset = _voc_val(EVAL_SIZES, root)
+        n = len(dataset)
+        # The host's own rate, one thread: JPEG decode, and decode + resize.
+        for name, prep in (("decode", lambda img: img),
+                           ("decode + resize to 416x416",
+                            lambda img: _resize_host(img, HW))):
+            t = time.perf_counter()
+            for i in range(n):
+                prep(dataset[i][1])
+            print(f"eval host {name} alone: {n / (time.perf_counter() - t):.1f}"
+                  f" img/s")
+        detectors = {
+            "bf16": Detector(model, conf_thre=0.05),
+            "int8": Detector(model, conf_thre=0.05, int8_scales=scales),
+        }
+        runs = {
+            "evaluate_batched 416x416 b64": lambda d: evaluate_batched(
+                d, dataset, image_hw=HW, batch_size=BATCH),
+            "evaluate_batched_native b16": lambda d: evaluate_batched_native(
+                d, dataset, batch_size=NATIVE_BATCH),
+        }
+        # Host time in the AP accumulation (the main thread's share).
+        ap_s = [0.0]
+        real_add = APAccumulator.add_image
+
+        def timed_add(self, *args):
+            t = time.perf_counter()
+            real_add(self, *args)
+            ap_s[0] += time.perf_counter() - t
+
+        for prec, det in detectors.items():
+            for name, run in runs.items():
+                walls = []
+                for _ in range(2):  # the first run meets new shapes
+                    before = {k: w.launches for k, w in counters.items()}
+                    ap_s[0] = 0.0
+                    APAccumulator.add_image = timed_add
+                    try:
+                        t = time.perf_counter()
+                        result = run(det)
+                        walls.append(time.perf_counter() - t)
+                    finally:
+                        APAccumulator.add_image = real_add
+                step = {k: w.launches - before[k] for k, w in counters.items()}
+                m50, m5095 = _map_scores(result, det.cls_list)
+                print(f"eval {name} {prec}: {n} images, {n / walls[0]:.1f} "
+                      f"img/s on the first run, {n / walls[1]:.1f} img/s on the "
+                      f"second (host JPEG decode included; AP accumulation "
+                      f"{1e3 * ap_s[0]:.1f} of its {1e3 * walls[1]:.1f} ms); "
+                      f"mAP@.5 {m50:.4f}, mAP[.5:.95] {m5095:.4f}; launches of "
+                      f"one run {step}")
+                if step["nms_suppress"] == 0:
+                    raise AssertionError(f"eval {name} {prec}: no NMS launch")
+        print("evaluate_batched_native bf16, one run:", end=" ")
+        _profile(lambda: evaluate_batched_native(
+            detectors["bf16"], dataset, batch_size=NATIVE_BATCH), calls=1)
+
+
+def _map50(result, cls_list):
+    """mAP@.5 over the classes with any AP, as the JAX package's trained-
+    model int8 test computes it."""
+    lvl = list(np.asarray(result["level_list"])).index(0.5)
+    aps = [result[c][lvl] for c in cls_list if np.any(result[c] > 0)]
+    return float(np.mean(aps)) if aps else 0.0
+
+
+def phase_int8_map():
+    """int8 accuracy on a TRAINED model (the counterpart of the JAX
+    package's test of it): overfit a full-width f32 YOLOv2 at 96x96 on 8
+    synthetic images (80 steps, momentum 0.9, no weight decay, lr 1e-3, no
+    augmentation, one fixed batch), calibrate on them, then mAP@.5 through
+    ``evaluate_batched`` (conf 0.1, max_keep 16): bf16 must exceed 0.3 and
+    int8 lose at most 0.15 of it."""
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.prefetch import device_prefetch
+    from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
+    from odc_tpu_torch.eval import Detector, evaluate_batched
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops import int8_engine as te
+    from odc_tpu_torch.train.trainer import TrainState, make_train_step
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_voc(root, num_train=8, num_val=0, image_hw=MAP_HW,
+                           seed=SEED)
+        voc = VOC(dataset_dir=root)
+        model = YOLOv2(image_size=MAP_HW, dtype=torch.float32, device=DEVICE,
+                       seed=SEED)
+        state = TrainState(model)
+        pipe = DetectionPipeline(voc.train_dataset, MAP_HW, 8, max_boxes=8,
+                                 shuffle=False, prefetch=0)
+        batch = next(iter(device_prefetch(pipe, DEVICE)))
+        step = make_train_step("v2", Lambdas(), model.anchors, momentum=0.9,
+                               weight_decay=0.0)
+        losses = []
+        for _ in range(MAP_STEPS):
+            state, metrics = step(state, batch, 1e-3)
+            losses.append(metrics["loss"])
+        losses = torch.stack(losses).tolist()
+        scales = te.calibrate(model, batch.image)
+        model16 = YOLOv2(image_size=MAP_HW, dtype=torch.bfloat16,
+                         device=DEVICE, seed=SEED)
+        model16.load_state_dict(model.state_dict())
+        maps = {}
+        for name, mdl, kw in (("f32", model, {}), ("bf16", model16, {}),
+                              ("int8", model, dict(int8_scales=scales))):
+            det = Detector(mdl, conf_thre=0.1, iou_thre=0.5, max_keep=16, **kw)
+            maps[name] = _map50(evaluate_batched(
+                det, voc.train_dataset, image_hw=MAP_HW, batch_size=8),
+                det.cls_list)
+    print(f"int8_map: {MAP_STEPS} f32 steps at {MAP_HW[0]}x{MAP_HW[1]}, batch "
+          f"8, loss {losses[0]:.3f} -> {losses[-1]:.4f}; mAP@.5 on the 8 "
+          f"trained images (conf 0.1, max_keep 16): f32 {maps['f32']:.4f}, "
+          f"bf16 {maps['bf16']:.4f}, int8 (s2d) {maps['int8']:.4f}, drop "
+          f"{maps['bf16'] - maps['int8']:+.4f} (bound 0.15); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not math.isfinite(losses[-1]) or not maps["bf16"] > 0.3:
+        raise AssertionError(f"int8_map: the model did not learn: {maps}")
+    if not maps["int8"] >= maps["bf16"] - 0.15:
+        raise AssertionError(f"int8_map: int8 mAP@.5 dropped beyond 0.15: "
+                             f"{maps}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1332,11 +1771,17 @@ def main() -> int:
     warp = phase_warp()
     launches, img_s, model, requests = phase_e2e()
     phase_matmul()
-    int8_launches, int8_img_s, mm = phase_int8_e2e(model, requests, {
-        "int8_matmul": matmul, "nms_suppress": suppress,
-        "superstem": superstem})
-    del model, requests
+    counters = {"int8_matmul": matmul, "nms_suppress": suppress,
+                "superstem": superstem}
+    int8_launches, int8_img_s, mm, scales = phase_int8_e2e(
+        model, requests, counters)
+    del requests
     torch.cuda.empty_cache()
+    native = phase_native(model, scales, counters)
+    phase_eval(model, scales, counters)
+    del model, scales
+    torch.cuda.empty_cache()
+    phase_int8_map()
     train_launches, train_img_s = phase_train({
         "nms_suppress": suppress, "superstem": superstem,
         "warp_affine": warp_affine})
@@ -1361,7 +1806,8 @@ def main() -> int:
              launches=int8_launches["int8_matmul"], **mm),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
-          f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s")
+          f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "
+          f"native (bucket calls, img/s) {native}")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ CUDA kernel here (``csrc/``), built with ``nvcc`` at first use
 function.  A wrapper runs the plain version for CPU tensors and the kernel
 for CUDA tensors; it never falls back from one to the other.
 
-Ported so far: YOLOv2 inference (``ops/detect.py::make_infer_fn``) and
-YOLOv2 training with in-step device augmentation (``train/``, ``python -m
-odc_tpu_torch.train``), with the data path, the loss and the checkpoints
-they need.
+Ported so far: YOLOv2 inference (``ops/detect.py::make_infer_fn``), bf16
+and int8 PTQ (``ops/int8_engine.py``); YOLOv2 training with in-step device
+augmentation (``train/``, ``python -m odc_tpu_torch.train``), with the data
+path, the loss and the checkpoints it needs; native-size evaluation and VOC
+mAP (``ops/detect.py::make_native_infer_fn``, ``eval/``, ``core/ap.py``)
+and the trainer's mAP hook.
 
 Entry points (model constructors, the training command line) default to
 ``device="cuda"`` and raise when no card is present; the CPU runs only when

@@ -106,7 +106,8 @@ class DetectionPipeline:
         self.max_boxes = max_boxes
         self.mode = mode
         self.shuffle = shuffle
-        self.cls2idx = {c: i for i, c in enumerate(cls_list)}
+        self.cls_list = list(cls_list)
+        self.cls2idx = {c: i for i, c in enumerate(self.cls_list)}
         self.drop_remainder = drop_remainder
         self.prefetch = prefetch
         self.process_index = process_index

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from odc_tpu_torch.models.layers import (
-    ConvBnLeaky, imagenet_normalize, max_pool_2x2,
+    ConvBnLeaky, extent_mask, imagenet_normalize, max_pool_2x2,
 )
 
 # (features, kernel) per conv within each stage; pools sit between stages.
@@ -50,19 +50,34 @@ class Darknet19Backbone(nn.Module):
         self.stages = nn.ModuleList(stages)
 
     def forward(
-        self, x: torch.Tensor, stem_out: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        stem_out: Optional[torch.Tensor] = None,
+        valid_hw: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, H, W, 3] RGB (0-255) -> (c5, c7), NHWC.
 
         ``stem_out`` (inference only): a precomputed
         ``pool(stage2(pool(stage1(normalize(x)))))`` map [N, H/4, W/4, 64]
-        from the fused stem; stages 1-2 are then skipped."""
+        from the fused stem; stages 1-2 are then skipped.
+
+        ``valid_hw`` ([N, 2] integer tensor, inference only): per-image
+        native sizes of a batch padded (top-left aligned) to a common
+        bucket.  The input of every k > 1 conv is zeroed beyond each image's
+        extent (:func:`~odc_tpu_torch.models.layers.extent_mask`) and the
+        extents floor-halve at each pool, so the valid region of every map
+        equals the image's native-size run."""
+        if stem_out is not None and valid_hw is not None:
+            raise ValueError("stem_out and valid_hw are mutually exclusive")
         start = 0 if stem_out is None else 2
         h = (
             imagenet_normalize(x, self.dtype)
             if stem_out is None
             else stem_out.to(self.dtype)
         )
+        eh = ew = None
+        if valid_hw is not None:
+            eh, ew = valid_hw[:, 0], valid_hw[:, 1]
         c5 = None
         for stage_idx, stage in enumerate(self.stages):
             if stage_idx < start:
@@ -70,7 +85,17 @@ class Darknet19Backbone(nn.Module):
             # Pool before stages 2..6; stage 3's pre-pool is inside stem_out.
             if 1 <= stage_idx <= 5 and stage_idx != start:
                 h = max_pool_2x2(h)
-            h = stage(h)
+                if eh is not None:
+                    eh, ew = eh // 2, ew // 2
+            if eh is None:
+                h = stage(h)
+            else:
+                # One mask a stage; 1x1 convs read no neighbourhood.
+                mask = extent_mask(h.shape, eh, ew).to(h.dtype)
+                for blk in stage:
+                    if blk.conv.kernel_size[0] > 1:
+                        h = h * mask
+                    h = blk(h)
             if stage_idx == 4:
                 c5 = h
         return c5, h

@@ -121,6 +121,24 @@ class ConvBnLeaky(nn.Module):
         return F.leaky_relu(y, self.negative_slope).to(dt)
 
 
+def extent_mask(shape, eh: torch.Tensor, ew: torch.Tensor) -> torch.Tensor:
+    """Per-image valid-extent mask for a padded NHWC batch.
+
+    ``shape`` is the [B, H, W, C] batch shape, ``eh``/``ew`` the [B] valid
+    extents (rows/cols below the extent are valid).  Returns a
+    [B, H, W, 1] bool mask, True inside each image's valid region.
+
+    Zeroing beyond the extents before every k > 1 conv makes a padded
+    forward equal, up to summation order, to running each image at its
+    native size with SAME zero padding: border windows read zeros where the
+    native run's implicit padding would be, and floor-halving the extents at
+    each pool reproduces the native run's odd-dimension drops."""
+    _, h, w, _ = shape
+    rm = torch.arange(h, device=eh.device)[None, :] < eh[:, None]
+    cm = torch.arange(w, device=ew.device)[None, :] < ew[:, None]
+    return (rm[:, :, None] & cm[:, None, :])[..., None]
+
+
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 max pool of an NHWC map, floor semantics (odd rows/cols drop)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)

@@ -5,6 +5,10 @@ into its TL/TR/BL/BR quadrants on channels (the reference's neck, not the
 paper's space-to-depth, which stays available as ``neck="space_to_depth"``),
 concatenated with c7 to 3072 channels, then Conv3x3(3072->1024)+BN+leaky and
 a Conv1x1 head reshaped to [N, Hg, Wg, A, 5 + C] in NHWC order.
+
+``forward(valid_hw=...)`` is the masked native-size forward over a batch
+padded to a common bucket: each image's valid grid cells equal its
+native-size run (the JAX package's evaluation semantics).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch.nn.functional as F
 
 from odc_tpu_torch import resolve_device
 from odc_tpu_torch.models.backbones.darknet19 import Darknet19Backbone
-from odc_tpu_torch.models.layers import ConvBnLeaky, _conv_init_
+from odc_tpu_torch.models.layers import ConvBnLeaky, _conv_init_, extent_mask
 from odc_tpu_torch.ops.decode import YOLOV2_ANCHORS, Detections, decode_v2
 
 
@@ -28,6 +32,29 @@ def quadrant_stack(h1: torch.Tensor) -> torch.Tensor:
     h, w = hh // 2, ww // 2
     hw = torch.cat([h1[:, :, :w], h1[:, :, w : 2 * w]], dim=-1)
     return torch.cat([hw[:, :h], hw[:, h : 2 * h]], dim=-1)
+
+
+def quadrant_stack_dynamic(
+    h1: torch.Tensor, e16h: torch.Tensor, e16w: torch.Tensor
+) -> torch.Tensor:
+    """Per-image quadrant reorg of a PADDED batch: [N, H, W, C] ->
+    [N, H//2, W//2, 4C], each image split at ITS native half extents
+    (``e16h // 2``, ``e16w // 2``, [N] integer tensors) rather than the
+    bucket's.  Offsets are gather indices on the tensors' device (no host
+    sync); like ``jax.lax.dynamic_slice`` each start is clamped to
+    ``[0, H - H//2]``.  Values beyond each image's quadrant extent are junk
+    that the caller masks."""
+    b, hh, ww, _ = h1.shape
+    h, w = hh // 2, ww // 2
+    qh = (e16h // 2).clamp(0, hh - h)[:, None, None]  # [N, 1, 1]
+    qw = (e16w // 2).clamp(0, ww - w)[:, None, None]
+    rows = torch.arange(h, device=h1.device)[None, :, None]  # [1, h, 1]
+    cols = torch.arange(w, device=h1.device)[None, None, :]  # [1, 1, w]
+    img = torch.arange(b, device=h1.device)[:, None, None]
+    return torch.cat([
+        h1[:, :h, :w], h1[img, rows, qw + cols], h1[img, qh + rows, cols],
+        h1[img, qh + rows, qw + cols],
+    ], dim=-1)
 
 
 def space_to_depth(h1: torch.Tensor) -> torch.Tensor:
@@ -81,6 +108,7 @@ class YOLOv2(nn.Module):
         x: torch.Tensor,
         stem_out: Optional[torch.Tensor] = None,
         neck_override: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        valid_hw=None,
     ) -> torch.Tensor:
         """[N, H, W, 3] RGB (0-255) -> raw head [N, Hg, Wg, A, 5 + C] f32.
 
@@ -89,10 +117,35 @@ class YOLOv2(nn.Module):
         ``neck_override`` (inference only, ignored in training mode): a
         replacement of the 3x3 neck conv, such as the quantized
         ``ops/quantize.py::int8_conv_bn_leaky``, applied to the
-        [N, Hg, Wg, 3072] concat."""
-        c5, c7 = self.backbone(x, stem_out=stem_out)
-        reorg = quadrant_stack if self.neck_kind == "quadrant" else space_to_depth
-        h = torch.cat([reorg(c5), c7], dim=-1)  # [N, Hg, Wg, 3072]
+        [N, Hg, Wg, 3072] concat.
+
+        ``valid_hw`` ([N, 2] native sizes, a tensor or array; inference
+        only, without ``stem_out`` or ``neck_override``): the masked forward
+        of a batch padded top-left to a common bucket.  Cells
+        ``[:h // 32, :w // 32]`` of each image's output equal its
+        native-size run; the cells beyond are junk the caller masks (see
+        ``ops/detect.py::make_native_infer_fn``)."""
+        if valid_hw is None:
+            c5, c7 = self.backbone(x, stem_out=stem_out)
+            reorg = (quadrant_stack if self.neck_kind == "quadrant"
+                     else space_to_depth)
+            h = torch.cat([reorg(c5), c7], dim=-1)  # [N, Hg, Wg, 3072]
+        else:
+            if self.training or neck_override is not None:
+                raise ValueError("valid_hw is an inference-only path "
+                                 "(no train/neck_override)")
+            valid_hw = torch.as_tensor(valid_hw, device=x.device).long()
+            c5, c7 = self.backbone(x, stem_out=stem_out, valid_hw=valid_hw)
+            e16h, e16w = valid_hw[:, 0] // 16, valid_hw[:, 1] // 16
+            if self.neck_kind == "quadrant":
+                p = quadrant_stack_dynamic(c5, e16h, e16w)
+            else:
+                # space_to_depth is block-local (translation-invariant under
+                # top-left-aligned padding): the static reorg is exact.
+                p = space_to_depth(c5)
+            h = torch.cat([p, c7], dim=-1)
+            # Mask before the 3x3 neck conv: valid grid = (h//32, w//32).
+            h = h * extent_mask(h.shape, e16h // 2, e16w // 2).to(h.dtype)
         if neck_override is not None and not self.training:
             h = neck_override(h)
         else:

@@ -12,6 +12,10 @@ int8 PTQ engine (``ops/int8_engine.py``) in place of the model forward and
 the fused stem, 20 launches of the GEMM kernel a call; ``int8_neck`` keeps
 the fused stem and swaps the 3x3 neck conv for the dynamic-PTQ int8 conv
 (``ops/quantize.py``), one GEMM launch a call.
+
+``make_native_infer_fn`` is the native-size counterpart over batches padded
+to a common bucket (the JAX package's evaluation semantics): the masked
+forward, bf16 or the int8 engine, then decode and one NMS kernel launch.
 """
 
 from __future__ import annotations
@@ -119,6 +123,92 @@ def make_infer_fn(
         if not compact:
             return out
         o_boxes, o_conf, o_cls, o_keep = out
+        return (
+            o_boxes,
+            o_conf,
+            o_cls.argmax(-1).to(torch.int32),
+            o_cls.max(-1).values,
+            o_keep,
+        )
+
+    return infer
+
+
+def make_native_infer_fn(
+    model,
+    conf_thre: float = 0.9,
+    iou_thre: float = 0.5,
+    max_keep: int = 64,
+    class_wise: bool = False,
+    int8_scales=None,
+    int8_stem: str = "s2d",
+) -> Callable:
+    """Native-size inference over a PADDED batch, YOLOv2 only.
+
+    ``infer(images, valid_hw, conf_thre=..., iou_thre=...)``: ``images``
+    [B, H, W, 3] uint8 padded top-left with zeros to a common bucket,
+    ``valid_hw`` [B, 2] each image's native (h, w) (numpy or a tensor;
+    moved to the model's device once per call).  The masked forward
+    (``YOLOv2.forward(valid_hw=...)``, or the int8 engine's with
+    ``int8_scales``) makes each image's valid grid cells equal its
+    native-size run; decode works in grid units and scales each image by
+    its native cell size (``valid_hw / (valid_hw // 32)``), so boxes come
+    out in native pixels; cells beyond an image's grid get conf 0 (so
+    ``conf_thre`` must be > 0).  The suppression is one NMS kernel launch
+    for the batch.  Returns the compact outputs ``(boxes, conf, labels
+    int32, label_scores, keep)``.
+
+    The fused superstem does not serve this path: it has no extents, and
+    ``valid_hw`` excludes ``stem_out``.  Stages 1-2 run as masked cuDNN
+    convolutions, as the JAX package runs its XLA stem here."""
+    if type(model).__name__ != "YOLOv2":
+        raise ValueError("make_native_infer_fn supports YOLOv2 only "
+                         "(v1 resizes to the network size; use make_infer_fn)")
+    if int8_scales is not None and model.neck_kind != "quadrant":
+        raise ValueError(
+            "int8_scales require a YOLOv2 with neck='quadrant' (the engine "
+            f"hardcodes the quadrant graph; got neck={model.neck_kind!r})"
+        )
+    model.eval()
+    device = next(model.parameters()).device
+    if int8_scales is not None:
+        int8_scales = scales_tensor(int8_scales, device)
+
+    @torch.no_grad()
+    def infer(images, valid_hw, conf_thre=conf_thre, iou_thre=iou_thre):
+        images = torch.as_tensor(images, device=device)
+        valid_hw = torch.as_tensor(valid_hw, device=device).long()
+        if int8_scales is not None:
+            y = yolov2_int8_forward(
+                model, images, scales=int8_scales,
+                num_anchor_box=model.num_anchor_box, num_cls=model.num_cls,
+                stem=int8_stem, valid_hw=valid_hw,
+            )
+        else:
+            y = model(images, valid_hw=valid_hw)
+        b, hg, wg, _, _ = y.shape
+        det = model.decode(y, (hg, wg))  # grid units: cell size 1
+        gh, gw = valid_hw[:, 0] // 32, valid_hw[:, 1] // 32
+        dt = det.boxes.dtype
+        sx = (valid_hw[:, 1] / gw).to(dt)  # native cell width
+        sy = (valid_hw[:, 0] / gh).to(dt)
+        scale = torch.stack([sx, sy, sx, sy], -1)[:, None, None, None, :]
+        boxes = (det.boxes * scale).reshape(b, -1, 4)
+        rows = torch.arange(hg, device=device)[None, :] < gh[:, None]
+        cols = torch.arange(wg, device=device)[None, :] < gw[:, None]
+        cell_valid = rows[:, :, None] & cols[:, None, :]  # [B, Hg, Wg]
+        conf = torch.where(cell_valid[..., None], det.conf, 0.0).reshape(b, -1)
+        num_cls = det.cls_spec.shape[-1]
+        cls_scores = det.cls_spec.reshape(b, -1, num_cls)
+        sup = (
+            class_offset_boxes(boxes, cls_scores.argmax(-1))
+            if class_wise
+            else None
+        )
+        o_boxes, o_conf, o_cls, o_keep = nms_padded(
+            boxes, conf, cls_scores, conf_thre, iou_thre, max_keep,
+            suppress_boxes=sup,
+        )
         return (
             o_boxes,
             o_conf,

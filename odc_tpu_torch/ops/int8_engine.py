@@ -25,8 +25,15 @@ so only the calibration pass (f32 activations) depends on that flag.
 
 Layouts follow the JAX package: NHWC activations, HWIO weights, the
 ``[22, 2]`` scale matrix with rows 0-19 for the backbone convs, row 20 for
-the neck output (unused in engine mode) and row 21 for the concat.  The
-masked native-size forward (``valid_hw``) is not ported yet.
+the neck output (unused in engine mode) and row 21 for the concat.
+
+``valid_hw`` runs the masked native-size forward over a batch padded to a
+common bucket: cells beyond each image's extent are held at the zero-point
+code (which dequantizes to exactly 0), the extents floor-halve at the pools
+and in the lifted s2d stem, the border correction applies at the bucket's
+bottom/right edge only to images that reach it, and the quadrant reorg
+splits each image at its own half extents.  With the plain stem the codes
+entering the neck equal each image's native-size run bit for bit.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from odc_tpu_torch.models.backbones.darknet19 import _STAGES
-from odc_tpu_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD
-from odc_tpu_torch.models.yolov2 import quadrant_stack
+from odc_tpu_torch.models.layers import (
+    IMAGENET_MEAN, IMAGENET_STD, extent_mask,
+)
+from odc_tpu_torch.models.yolov2 import quadrant_stack, quadrant_stack_dynamic
 from odc_tpu_torch.ops.quantize import (
     conv_i8, hwio, quantize_weights_per_channel,
 )
@@ -138,22 +147,46 @@ def _border_masks(hw, device):
             (col == 0).float(), (col == w - 1).float())
 
 
-def _zp_border_correction(wq, z, hw):
+def _zp_border_correction(wq, z, hw, eh=None, ew=None):
     """Zero-point correction for a 3x3 SAME conv over asymmetric codes.
 
     With input codes q (x = s*(q - z)), the SAME-0 conv computes
     acc = sum_in(w*q); the true conv is s*acc - s*z*wsum + s*z*W_out(pos),
     where W_out(pos) is the kernel mass falling outside the image: zero in
     the interior, rank-1 row/col patterns at the borders.  Returns the
-    (z*W_out) term, broadcastable to [1, H, W, C]."""
+    (z*W_out) term, broadcastable to [1, H, W, C].
+
+    With per-image extents ``eh``/``ew`` ([B] integer tensors; the masked
+    native-size path, the JAX package's ``_zp_border_correction_native``),
+    cells beyond each extent hold the zero-point code (:func:`_mask_codes`),
+    which dequantizes to exactly 0, so an image's interior bottom/right
+    boundary gets its padding from the masked region with no correction:
+    the bottom row / right column terms apply only to images whose extent
+    reaches the bucket's edge (``eh == H`` / ``ew == W``), and the term is
+    [B, H, W, C]-broadcastable."""
     wtop, wbot, wleft, wright, wtl, wtr, wbl, wbr = _edge_sums(wq)
     top, bot, left, right = _border_masks(hw, wq.device)
+    if eh is not None:
+        h, w = hw
+        bot = bot * (eh == h).float()[:, None, None, None]
+        right = right * (ew == w).float()[:, None, None, None]
     w_out = (
         top * wtop + bot * wbot + left * wleft + right * wright
         - top * left * wtl - top * right * wtr
         - bot * left * wbl - bot * right * wbr
     )
     return z * w_out
+
+
+def _mask_codes(h, eh, ew, z):
+    """Set cells beyond each image's (eh, ew) extent to the zero-point code
+    ``z`` (0 where ``z`` is None), which dequantizes to exactly 0: the
+    int8 counterpart of the float masked forward's zeroing.  The border
+    windows of the next k > 1 conv then read what a native-size run's
+    implicit SAME padding supplies."""
+    zc = (torch.round(z).to(h.dtype) if z is not None
+          else torch.zeros((), dtype=h.dtype, device=h.device))
+    return torch.where(extent_mask(h.shape, eh, ew), h, zc)
 
 
 def _zp_border_correction_lifted(wq, z, hw):
@@ -268,7 +301,13 @@ def yolov2_int8_forward(
     reformulation of ``"s2d"``).  ``bf16_front`` runs the first convs in
     bf16.  ``stop_after`` returns the codes after backbone conv ``i`` (0-19),
     the neck input (21) or the neck output (22).  ``calib_percentile``
-    clips each calibration range at that percentile of |activation|."""
+    clips each calibration range at that percentile of |activation|.
+
+    ``valid_hw`` ([N, 2] native sizes, a tensor or array; engine mode with
+    ``stem`` plain or s2d and ``bf16_front=0`` only): the masked native-size
+    forward of a batch padded top-left to a common bucket.  Cells
+    ``[:h // 32, :w // 32]`` of each image's head equal its native-size
+    engine run; the cells beyond are junk the caller masks."""
     blocks = _blocks(model)
     calibrating = scales is None
     stat = (
@@ -289,11 +328,6 @@ def yolov2_int8_forward(
         raise ValueError(
             f"stem must be 'plain', 's2d' or 's2d2', got {stem!r}"
         )
-    if valid_hw is not None:
-        raise NotImplementedError(
-            "valid_hw is not ported yet: the masked native-size int8 forward "
-            "comes with the native-size eval slice of the port"
-        )
     amaxes = []
 
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
@@ -301,6 +335,24 @@ def yolov2_int8_forward(
     h0 = (images.float() / 255.0 - mean) / std
     s_in = torch.tensor(_INPUT_AMAX / 127.0, dtype=torch.float32,
                         device=device)
+    eh = ew = None
+    if valid_hw is not None:
+        if calibrating:
+            raise ValueError(
+                "valid_hw is engine-mode only (calibrate on un-padded "
+                "deployment-size batches)"
+            )
+        if bf16_front > 0 or stem == "s2d2":
+            raise ValueError(
+                "valid_hw supports stem='plain'/'s2d' with bf16_front=0 "
+                "(the shipped configurations)"
+            )
+        valid_hw = torch.as_tensor(valid_hw, device=device).long()
+        eh, ew = valid_hw[:, 0], valid_hw[:, 1]
+        # The padded uint8 image is zero-filled; mask the NORMALIZED pixels
+        # to 0 so the first conv's border windows read a native run's SAME
+        # padding (the input layer is symmetric: code 0 is its zero point).
+        h0 = _mask_codes(h0, eh, ew, None)
 
     if calibrating or bf16_front > 0 or stem != "plain":
         # The leading convs stay float (bf16_front, the s2d stems) or f32
@@ -320,6 +372,10 @@ def yolov2_int8_forward(
         first_of_stage = i == 0 or _STAGE_OF[i - 1] != si
         if first_of_stage and 1 <= si <= 5 and si > pooled_to:
             h = _pool(h)
+            if eh is not None:
+                # Floor-halving extents: a valid pool output (i < e//2)
+                # reads only rows 2i, 2i+1 < e, so masked cells never leak.
+                eh, ew = eh // 2, ew // 2
 
         if not calibrating and i == 0 and stem in ("s2d", "s2d2"):
             # s2d stem: stage-1 conv + 2x2 pool as ONE 4x4/stride-2 bf16
@@ -335,6 +391,9 @@ def yolov2_int8_forward(
             h = _phase_max(_quant_act(y, s_out, z_out))
             s_prev, z_prev = s_out, z_out
             pooled_to = 1
+            if eh is not None:
+                # The lifted conv + phase-max IS conv0 + pool: extents halve.
+                eh, ew = eh // 2, ew // 2
             if stop_after == 0:
                 return h
             continue
@@ -378,6 +437,11 @@ def yolov2_int8_forward(
         else:
             wq, sw = quantize_weights_per_channel(conv_p["kernel"])
             a, b = _affine(conv_p, bn_p, bn_s, sw, s_prev)
+            if eh is not None and wq.shape[0] > 1:
+                # Masked path: out-of-extent cells at the zero-point code,
+                # so this conv's boundary windows read native SAME padding
+                # (1x1 convs read no neighbourhood).
+                h = _mask_codes(h, eh, ew, z_prev)
             acc = acc_f = conv_i8(h, wq).float()
             if z_prev is not None:
                 # zero-point correction: interior folds into the bias,
@@ -386,7 +450,7 @@ def yolov2_int8_forward(
                 b = b - z_prev * wsum * a
                 if wq.shape[0] > 1:
                     acc_f = acc + _zp_border_correction(
-                        wq, z_prev, h.shape[1:3]
+                        wq, z_prev, h.shape[1:3], eh, ew
                     )
             y = F.leaky_relu(acc_f * a + b, 0.1)
             s_out, z_out = _act_qparams(scales[i])
@@ -395,12 +459,14 @@ def yolov2_int8_forward(
         if i == c5_idx:
             c5 = h
             s_c5, z_c5 = s_prev, z_prev
+            e_c5 = (eh, ew)  # c5 grid extents = valid_hw // 16
         if stop_after == i:
             return h
 
     # Quadrant passthrough + concat: re-quantize both sides to a common
     # scale (int8 path only; f32 concatenates directly).
-    quad = quadrant_stack(c5)
+    quad = (quadrant_stack(c5) if eh is None
+            else quadrant_stack_dynamic(c5, *e_c5))
     if calibrating:
         cat = torch.cat([quad, h], -1)
         amaxes.append(_range_stat(cat, stat))
@@ -417,6 +483,10 @@ def yolov2_int8_forward(
         neck_in = torch.cat(
             [requant(quad, s_c5, z_c5), requant(h, s_prev, z_prev)], -1
         )
+        if eh is not None:
+            # Valid neck grid = valid_hw // 32 (the c7 extents after five
+            # pools); mask to the concat's zero point before the 3x3 conv.
+            neck_in = _mask_codes(neck_in, eh, ew, z_cat)
 
     if stop_after == 21:  # after the quadrant concat / requant
         return neck_in
@@ -432,7 +502,7 @@ def yolov2_int8_forward(
         wsum = wq.float().sum(dim=(0, 1, 2))
         b = b - z_cat * wsum * a
         acc = conv_i8(neck_in, wq).float()
-        acc = acc + _zp_border_correction(wq, z_cat, neck_in.shape[1:3])
+        acc = acc + _zp_border_correction(wq, z_cat, neck_in.shape[1:3], eh, ew)
         neck = F.leaky_relu(acc * a + b, 0.1)
     if stop_after == 22:  # after the neck conv
         return neck

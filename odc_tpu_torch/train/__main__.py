@@ -8,6 +8,11 @@ and the pipelines, and runs the staged training schedule on ``--device``
     python -m odc_tpu_torch.train --dataset-dir datasets --augment device
     python -m odc_tpu_torch.train --device cpu --synthetic --epochs 1 \\
         --batch-size 4 --image-size 64          # smoke run without a card
+
+``--eval-map-conf`` is the one confidence threshold of both mAP runs: the
+in-training hook (``--eval-map-every``) and the run after training
+(``--eval-map``).  The JAX package's ``train.py`` scores the latter at the
+detector's default 0.9 instead.
 """
 
 from __future__ import annotations
@@ -17,10 +22,7 @@ import datetime
 import os
 
 _LATER = {
-    "eval_map": "--eval-map (VOC mAP after training) comes with the eval "
-    "slice of the port",
-    "eval_map_every": "--eval-map-every comes with the eval slice of the port",
-    "qat": "--qat comes with the int8 slice of the port",
+    "qat": "--qat comes with the QAT slice of the port",
     "data_parallel": "--data-parallel comes with the data-parallel slice of "
     "the port",
     "model_parallel": "--model-parallel comes with the data-parallel slice "
@@ -60,11 +62,17 @@ def parse_args(argv=None):
                    help="generate and train on a tiny synthetic VOC")
     p.add_argument("--resume", default=None,
                    help="checkpoint path to resume from")
+    p.add_argument("--eval-map", action="store_true",
+                   help="run batched VOC mAP on the val set after training")
+    p.add_argument("--eval-map-every", type=int, default=0, metavar="N",
+                   help="run streaming batched VOC mAP on the val set every "
+                   "N epochs during training; logs kind='map_eval' rows to "
+                   "metrics.jsonl and keeps best_map_model.ckpt")
+    p.add_argument("--eval-map-conf", type=float, default=0.05,
+                   help="confidence threshold of --eval-map-every and "
+                   "--eval-map (low default: mAP needs the full PR curve)")
     # Flags of paths that are not ported yet: accepted so that a command
     # line written for the JAX package fails with a clear message.
-    p.add_argument("--eval-map", action="store_true", help=_LATER["eval_map"])
-    p.add_argument("--eval-map-every", type=int, default=0, metavar="N",
-                   help=_LATER["eval_map_every"])
     p.add_argument("--qat", default=None, metavar="CKPT", help=_LATER["qat"])
     p.add_argument("--data-parallel", type=int, default=None,
                    help=_LATER["data_parallel"])
@@ -142,6 +150,7 @@ def main(argv=None) -> None:
         batch_size=train_cfg.batch_size,
         max_boxes=train_cfg.max_boxes,
         mode="v2",
+        cls_list=dataset.cls_list,
         seed=train_cfg.seed,
     )
     val_pipe = DetectionPipeline(
@@ -150,6 +159,7 @@ def main(argv=None) -> None:
         batch_size=train_cfg.batch_size,
         max_boxes=train_cfg.max_boxes,
         mode="v2",
+        cls_list=dataset.cls_list,
         shuffle=False,
         # Validate over EVERY image like the reference; the tail batch is
         # padded, not dropped.
@@ -159,6 +169,8 @@ def main(argv=None) -> None:
     trainer = Trainer(
         model, train_pipe, val_pipe, train_cfg, ckpt_path=ckpt_path,
         augment_cfg=AugmentConfig() if args.augment == "device" else None,
+        eval_map_every=args.eval_map_every,
+        eval_map_conf_thre=args.eval_map_conf,
     )
 
     state = None
@@ -166,8 +178,22 @@ def main(argv=None) -> None:
         state = checkpoint.restore(args.resume, trainer.init_state())
         print(f"resumed from {args.resume} at step {state.step}")
 
-    trainer.fit(state)
+    state, _ = trainer.fit(state)
     print(f"done; checkpoints in {ckpt_path}")
+
+    if args.eval_map:
+        import numpy as np
+
+        from odc_tpu_torch.eval import Detector, evaluate_batched
+
+        det = Detector(state.model, cls_list=dataset.cls_list,
+                       conf_thre=args.eval_map_conf)
+        result = evaluate_batched(
+            det, dataset.val_dataset, image_hw=image_size,
+            batch_size=train_cfg.batch_size,
+        )
+        aps = np.stack([result[c] for c in dataset.cls_list])
+        print(f"mAP[.5:.95]: {aps.mean():.4f}  mAP@.5: {aps[:, 0].mean():.4f}")
 
 
 if __name__ == "__main__":

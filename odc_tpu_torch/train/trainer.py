@@ -14,6 +14,9 @@ Port of ``odc_tpu/train/trainer.py``:
 * staged LRs with the epoch-1 warmup curve (``schedule.py``);
 * per-epoch validation loss, best/final checkpoints, loss-history pickle and
   a ``train_config.json`` snapshot, plus restore/resume;
+* the mAP-during-training hook (``eval_map_every``): streaming batched VOC
+  mAP over the val dataset, a ``map_eval`` row in ``metrics.jsonl`` and a
+  best-by-mAP checkpoint;
 * multi-scale policy for v2 ("reference": size picked only at epoch 1;
   "every10": every 10 epochs).
 
@@ -22,8 +25,7 @@ updated IN PLACE: ``train_step`` mutates the model's parameters and BN
 buffers and the momentum buffers, and returns the same object.
 
 Validation runs batched at the pipeline's static size.  Not ported yet:
-the mAP-during-training hook (``eval_map_every``), YOLOv3's loss
-(``mode="v3"``), and the device mesh.
+YOLOv3's loss (``mode="v3"``) and the device mesh.
 """
 
 from __future__ import annotations
@@ -228,17 +230,13 @@ class Trainer:
         rng_seed: Optional[int] = None,
         augment_cfg=None,
         eval_map_every: int = 0,
+        eval_map_conf_thre: float = 0.05,
     ) -> None:
         if not getattr(train_pipeline, "drop_remainder", True):
             raise ValueError(
                 "train pipeline must use drop_remainder=True: padded tail "
                 "rows are zero images that would feed BatchNorm batch "
                 "statistics in train mode (padding is eval-only)"
-            )
-        if eval_map_every:
-            raise NotImplementedError(
-                "eval_map_every is not ported yet: the mAP-during-training "
-                "hook comes with the eval slice of the port"
             )
         self.model = model
         self.device = next(model.parameters()).device
@@ -275,6 +273,11 @@ class Trainer:
             self.mode, self.lambdas, self.anchors,
             val_loss_mode=self.val_loss_mode,
         )
+        # mAP hook: every ``eval_map_every`` epochs, streaming batched VOC
+        # mAP over the val pipeline's dataset at ``eval_map_conf_thre``
+        # (low by default: mAP needs the whole precision-recall curve).
+        self.eval_map_every = int(eval_map_every)
+        self.eval_map_conf_thre = float(eval_map_conf_thre)
         os.makedirs(ckpt_path, exist_ok=True)
         self.logger = JsonlLogger(os.path.join(ckpt_path, "metrics.jsonl"))
 
@@ -337,6 +340,35 @@ class Trainer:
         self.logger.write(kind="val_epoch", epoch=epoch, loss=val)
         return val
 
+    def run_map_eval(self, state: TrainState, epoch: int) -> dict:
+        """Streaming batched VOC mAP on the val dataset at the val
+        pipeline's size, scored under its class list.  Returns
+        ``{"map_50": ..., "map_50_95": ...}`` and writes a
+        ``kind="map_eval"`` row to metrics.jsonl."""
+        from odc_tpu_torch.eval import Detector, evaluate_batched
+
+        # A Detector folds the fused stem's weights when it is built, so one
+        # is built for each evaluation, from the weights of the moment.
+        det = Detector(state.model, cls_list=self.val_pipeline.cls_list,
+                       conf_thre=self.eval_map_conf_thre)
+        t0 = time.time()
+        result = evaluate_batched(
+            det,
+            self.val_pipeline.dataset,
+            image_hw=self.val_pipeline.image_hw,
+            batch_size=self.val_pipeline.batch_size,
+        )
+        aps = np.stack([result[c] for c in det.cls_list])
+        scores = {
+            "map_50": float(aps[:, 0].mean()),
+            "map_50_95": float(aps.mean()),
+        }
+        self.logger.write(
+            kind="map_eval", epoch=epoch, eval_seconds=time.time() - t0,
+            **scores,
+        )
+        return scores
+
     # -- full run ------------------------------------------------------------
 
     def _maybe_multiscale(self, epoch: int) -> None:
@@ -365,6 +397,7 @@ class Trainer:
 
         train_hist, val_hist = [], []
         min_val = float("inf")
+        best_map = -1.0
 
         for epoch in self.schedule.epochs():
             self._maybe_multiscale(epoch)
@@ -381,6 +414,18 @@ class Trainer:
                     os.path.join(self.ckpt_path, "best_model.ckpt"), state
                 )
                 min_val = val_loss
+            if self.eval_map_every and epoch % self.eval_map_every == 0:
+                scores = self.run_map_eval(state, epoch)
+                print(
+                    f"Epoch: {epoch} --> mAP@.5: {scores['map_50']:.4f}  "
+                    f"mAP[.5:.95]: {scores['map_50_95']:.4f}"
+                )
+                if scores["map_50_95"] > best_map:
+                    ckpt_lib.save(
+                        os.path.join(self.ckpt_path, "best_map_model.ckpt"),
+                        state,
+                    )
+                    best_map = scores["map_50_95"]
 
         ckpt_lib.save(os.path.join(self.ckpt_path, "final_model.ckpt"), state)
         history = {

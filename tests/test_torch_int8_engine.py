@@ -253,12 +253,14 @@ def test_infer_int8_scales_matches_jax(engine, monkeypatch):
 
 
 def test_rejections(engine):
-    """valid_hw names the slice that brings it; a space_to_depth model, a
-    wrong scale matrix and an unknown stem are refused as in JAX."""
+    """valid_hw with the s2d2 stem or a bf16 front, a space_to_depth model,
+    a wrong scale matrix and an unknown stem are refused as in JAX."""
     model, x = engine["model"], torch.tensor(engine["images"])
-    with pytest.raises(NotImplementedError, match="native-size"):
-        te.yolov2_int8_forward(model, x, scales=engine["scales"],
-                               valid_hw=torch.tensor([[64, 96], [64, 96]]))
+    for kw in (dict(stem="s2d2"), dict(stem="plain", bf16_front=1)):
+        with pytest.raises(ValueError, match="valid_hw supports"):
+            te.yolov2_int8_forward(model, x, scales=engine["scales"],
+                                   valid_hw=torch.tensor([[64, 96], [64, 96]]),
+                                   **kw)
     with pytest.raises(ValueError, match="shape"):
         te.yolov2_int8_forward(model, x, scales=engine["scales"][:21])
     with pytest.raises(ValueError, match="stem"):

@@ -26,10 +26,11 @@ from odc_tpu.ops import augment as jaug
 from odc_tpu.ops.assign import assign_numpy
 from odc_tpu.train import schedule as jschedule
 from odc_tpu.train import trainer as jtrainer
+from odc_tpu_torch import eval as teval
 from odc_tpu_torch.config import TrainConfig
 from odc_tpu_torch.data.pipeline import Batch, DetectionPipeline
 from odc_tpu_torch.data.prefetch import device_prefetch
-from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
+from odc_tpu_torch.data.voc import VOC, VOCDataset, make_synthetic_voc
 from odc_tpu_torch.losses.yolo_loss import Lambdas
 from odc_tpu_torch.models import layers as tlayers
 from odc_tpu_torch.models.convert_jax import (
@@ -554,7 +555,6 @@ def test_multiscale_policies(voc, tmp_path, policy, epochs, repicks):
 @pytest.mark.parametrize(
     "kwargs, error, match",
     [(dict(train_drop_remainder=False), ValueError, "drop_remainder"),
-     (dict(eval_map_every=1), NotImplementedError, "not ported yet"),
      (dict(mode="v3"), NotImplementedError, "not ported yet"),
      (dict(mode="v9"), ValueError, "mode")],
 )
@@ -567,12 +567,52 @@ def test_trainer_rejections(voc, tmp_path, kwargs, error, match):
                          TrainConfig(), str(tmp_path), **kwargs)
 
 
+def test_trainer_map_hook(voc, tmp_path, monkeypatch):
+    """``eval_map_every=1``: two epochs at 64x64 on the CPU each write a
+    ``map_eval`` row and keep ``best_map_model.ckpt``; the hook scores
+    under the val pipeline's own class list, here a custom one (the
+    synthetic labels' names in another order), not VOC's.  One batch of
+    four images a split."""
+    classes = list(reversed(voc.cls_list))
+    train = DetectionPipeline(
+        VOCDataset(voc.train_img_path_list[:4], voc.train_annot_list[:4]),
+        (64, 64), 4, max_boxes=8, cls_list=classes, seed=0)
+    val = DetectionPipeline(
+        VOCDataset(voc.val_img_path_list[:4], voc.val_annot_list[:4]),
+        (64, 64), 4, max_boxes=8, cls_list=classes, shuffle=False,
+        drop_remainder=False)
+    config = TrainConfig(learning_rate_list=[1e-3], num_epoch_list=[2],
+                         batch_size=4, max_boxes=8, multiscale_sizes=())
+    ckpts = tmp_path / "ckpts"
+    trainer = ttrainer.Trainer(
+        YOLOv2(dtype=torch.float32, device="cpu", seed=5), train, val,
+        config, str(ckpts), eval_map_every=1, eval_map_conf_thre=0.01,
+    )
+    scored = []
+    real = teval.evaluate_batched
+
+    def spy(det, dataset, **kw):
+        scored.append((det.cls_list, det.conf_thre, len(dataset), kw))
+        return real(det, dataset, **kw)
+
+    monkeypatch.setattr(teval, "evaluate_batched", spy)
+    trainer.fit()
+    assert scored == [(classes, 0.01, 4, dict(image_hw=(64, 64),
+                                              batch_size=4))] * 2
+    rows = [json.loads(line)
+            for line in (ckpts / "metrics.jsonl").read_text().splitlines()]
+    assert [r["kind"] for r in rows] == ["train_epoch", "val_epoch",
+                                        "map_eval"] * 2
+    for r in rows[2::3]:
+        assert 0.0 <= r["map_50_95"] <= r["map_50"] and r["eval_seconds"] > 0
+    assert (ckpts / "best_map_model.ckpt").exists()
+    _remove_checkpoints(ckpts)
+
+
 @pytest.mark.parametrize(
     "argv, message",
     [(["--augment", "host"], "host-augment slice"),
-     (["--eval-map"], "eval slice"),
-     (["--eval-map-every", "2"], "eval slice"),
-     (["--qat", "x.ckpt"], "int8 slice"),
+     (["--qat", "x.ckpt"], "QAT slice"),
      (["--data-parallel", "2"], "data-parallel slice"),
      (["--model-parallel", "2"], "data-parallel slice"),
      (["--model", "YOLOv3"], "YOLOv3 slice"),
@@ -589,6 +629,57 @@ def test_cli_defaults():
     args = cli.parse_args([])
     assert (args.model, args.device, args.augment) == ("YOLOv2", "cuda", "device")
     assert cli.parse_args(["--no-augment"]).augment == "none"
+    assert (args.eval_map, args.eval_map_every, args.eval_map_conf) == (
+        False, 0, 0.05)
+
+
+@pytest.mark.parametrize("argv, key, value", [
+    (["--eval-map"], "eval_map", True),
+    (["--eval-map-every", "2"], "eval_map_every", 2),
+])
+def test_cli_parses_the_map_flags(argv, key, value):
+    assert getattr(cli.parse_args(argv), key) == value
+
+
+def test_cli_eval_map_conf_reaches_both_uses(tmp_path, monkeypatch):
+    """``--eval-map-conf`` is the threshold of the in-training hook and of
+    the run after training, which is scored under the dataset's class list
+    (the Trainer and the evaluator are stand-ins: no training here)."""
+    import types
+
+    import odc_tpu_torch.train as ttrain
+
+    seen = {}
+
+    class FakeTrainer:
+        def __init__(self, model, *args, **kwargs):
+            seen["trainer"] = kwargs
+            self.model = model
+
+        def fit(self, state):
+            return types.SimpleNamespace(model=self.model), {}
+
+    class FakeDetector:
+        def __init__(self, model, cls_list, conf_thre):
+            seen["detector"] = (list(cls_list), conf_thre)
+            self.cls_list = list(cls_list)
+
+    def fake_evaluate(det, dataset, image_hw, batch_size):
+        seen["evaluate"] = (len(dataset), image_hw)
+        return {c: np.zeros(10) for c in det.cls_list}
+
+    monkeypatch.setattr(ttrain, "Trainer", FakeTrainer)
+    monkeypatch.setattr(teval, "Detector", FakeDetector)
+    monkeypatch.setattr(teval, "evaluate_batched", fake_evaluate)
+    cli.main(["--device", "cpu", "--synthetic", "--epochs", "1",
+              "--batch-size", "4", "--image-size", "64", "--eval-map",
+              "--eval-map-every", "3", "--eval-map-conf", "0.25",
+              "--dataset-dir", str(tmp_path / "voc"),
+              "--ckpt-root", str(tmp_path / "ckpts")])
+    assert seen["trainer"]["eval_map_every"] == 3
+    assert seen["trainer"]["eval_map_conf_thre"] == 0.25
+    assert seen["detector"] == (VOC(str(tmp_path / "voc")).cls_list, 0.25)
+    assert seen["evaluate"] == (8, (64, 64))
 
 
 def test_cli_trains_on_the_cpu(tmp_path):

@@ -67,6 +67,28 @@ def int8_parity_setup():
     return images, JaxYOLOv2(dtype=jnp.float32), calibrate_bn(model, images)
 
 
+def pad_to_bucket(images, bucket):
+    """Pad native uint8 images top-left with zeros into one bucket batch:
+    (uint8 [B, H, W, 3], valid_hw int32 [B, 2])."""
+    out = np.zeros((len(images), *bucket, 3), np.uint8)
+    vhw = np.zeros((len(images), 2), np.int32)
+    for j, img in enumerate(images):
+        h, w = img.shape[:2]
+        out[j, :h, :w] = img
+        vhw[j] = (h, w)
+    return out, vhw
+
+
+def gap_threshold(conf: np.ndarray, lo: int, hi: int) -> float:
+    """Midpoint of the largest gap between adjacent sorted confidences
+    between ranks ``lo`` and ``hi`` (as ``chip_smoke.py::_gap_threshold``):
+    a threshold no candidate sits near, so ulp-level differences cannot
+    change which candidates pass it."""
+    s = np.sort(conf.ravel().astype(np.float64))[::-1]
+    r = lo + int(np.argmax(s[lo:hi] - s[lo + 1:hi + 1]))
+    return float((s[r] + s[r + 1]) / 2)
+
+
 def calibrate_bn(model: YOLOv2, images: np.ndarray):
     """Set every BN's running statistics of the port's ``model`` to the
     batch statistics of ``images`` at its input, layer by layer; returns
