@@ -35,7 +35,16 @@ just before and read just after:
   box transform -> assign -> forward with batch-statistics BN -> loss ->
   backward -> SGD), two epochs of four steps on an in-memory synthetic
   dataset, checking that the warp kernel launched once per step, that the
-  state moved, and that the checkpoint restores it.
+  state moved, and that the checkpoint restores it;
+* YOLOv1 — YOLOv1-224 bf16 (GoogLeNet -> Dense head -> decode_v1 -> NMS)
+  through ``make_infer_fn``, a batch of 8 then batches of 512, checking 1
+  NMS launch a call and no other kernel, each served layer (57 GoogLeNet
+  conv units, the Dense head) against its f32 counterpart on the served
+  inputs, with an fp8 control that must fail that check, and the NMS
+  against its plain version on the path's candidates;
+  ``Detector.detect`` on two JPEGs and ``evaluate_batched`` on 64; then
+  YOLOv1-224 training at batch 32 (dropout 0.5) as above, the warp held
+  against its plain version on the step's own images and maps.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with each kernel's launches, error and times, and as its last line
@@ -76,6 +85,18 @@ TIMED_STEPS = 12
 
 # int8 path: calibration batch (as bench.py calibrates the JAX engine).
 CALIB_IMAGES = 32
+
+# YOLOv1 path: YOLOv1-224 (GoogLeNet, S=7, B=2, C=20), served at batch 512
+# (the first batch of the JAX package's bench_yolov1), 98 candidates an
+# image; trained at TRAIN_BATCH.
+V1_HW = (224, 224)
+V1_BATCH = 512
+
+
+def _v1_kwargs(hw):
+    """YOLOv1 at ``hw``: the grid is ``hw // 32`` (224 -> S = 7)."""
+    return dict(num_grid_cell_in_height=hw[0] // 32,
+                num_grid_cell_in_width=hw[1] // 32, image_size=hw)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core,
 # int8 tensor-core and f32 CUDA-core operations/s.
@@ -475,7 +496,11 @@ def phase_e2e():
           f"{med:.3f} ms/call (quartiles {q[0]:.3f} / {q[2]:.3f}, n="
           f"{len(call_ms)}) -> {img_s:.1f} img/s")
 
-    _layer_breakdown(model, infer, requests[1])
+    # Stem: superstem + input handling; backbone: Darknet-19 stages 3-7;
+    # head: the 1x1 conv + reshape.
+    _layer_breakdown(infer, requests[1], [
+        (model, "pre", "stem"), (model.backbone, "post", "backbone"),
+        (model.neck, "post", "neck"), (model, "post", "head")])
     _profile(lambda: infer(requests[1]))
 
     # Head output: fused stem vs plain stem on the same bf16 model.  Bound:
@@ -525,10 +550,11 @@ def phase_e2e():
     return launches, img_s, model, requests
 
 
-def _layer_breakdown(model, infer, images, iters: int = 10):
-    """Device time per layer of one infer call, from CUDA events recorded
-    by module hooks: stem (superstem + input handling), Darknet-19 stages
-    3-7, neck conv, head conv + reshape, decode + NMS."""
+def _layer_breakdown(infer, images, points, iters: int = 10):
+    """Device time per part of one infer call, from CUDA events recorded by
+    module hooks: ``points`` lists ``(module, "pre" or "post", name)``, each
+    name the part that ends at that point; the part after the last point
+    is decode + NMS."""
     marks = []
 
     def mark(name):
@@ -539,10 +565,9 @@ def _layer_breakdown(model, infer, images, iters: int = 10):
         return hook
 
     hooks = [
-        model.register_forward_pre_hook(mark("stem")),
-        model.backbone.register_forward_hook(mark("backbone")),
-        model.neck.register_forward_hook(mark("neck")),
-        model.register_forward_hook(mark("head")),
+        module.register_forward_pre_hook(mark(name)) if when == "pre"
+        else module.register_forward_hook(mark(name))
+        for module, when, name in points
     ]
     totals = {}
     try:
@@ -1150,16 +1175,22 @@ def _state_tensors(state):
     return out
 
 
-def phase_train(counters):
-    """The training path: YOLOv2-416 bf16 at batch 32 through Trainer.fit
-    with in-step device augmentation; ``counters`` are the wrappers whose
-    launch counts are zeroed just before ``fit`` and read just after."""
+def phase_train(counters, model_name: str = "YOLOv2", hw=HW):
+    """A training path: model ``model_name`` at ``hw`` (YOLOv2-416 or
+    YOLOv1-224, whose dropout draws from the trainer's generator), bf16, at
+    batch 32 through Trainer.fit with in-step device augmentation;
+    ``counters`` are the wrappers whose launch counts are zeroed just
+    before ``fit`` and read just after."""
     from odc_tpu_torch.config import TrainConfig
     from odc_tpu_torch.data.pipeline import DetectionPipeline
     from odc_tpu_torch.data.prefetch import device_prefetch
-    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.models import get_model
     from odc_tpu_torch.ops.augment import (
-        AugmentConfig, apply_augment, sample_augment_params,
+        AugmentConfig, _invert_affine, apply_augment, sample_augment_params,
+        warp_max_shear,
+    )
+    from odc_tpu_torch.ops.cuda.warp_kernel import (
+        warp_affine, warp_affine_plain,
     )
     from odc_tpu_torch.train import checkpoint
     from odc_tpu_torch.train.trainer import (
@@ -1167,19 +1198,28 @@ def phase_train(counters):
     )
 
     t0 = time.perf_counter()
-    train_set = _RectanglesOnNoise(TRAIN_IMAGES, HW, SEED + 7)
-    val_set = _RectanglesOnNoise(VAL_IMAGES, HW, SEED + 8)
-    # The static 416x416 size: no multi-scale re-targeting.
+    train_set = _RectanglesOnNoise(TRAIN_IMAGES, hw, SEED + 7)
+    val_set = _RectanglesOnNoise(VAL_IMAGES, hw, SEED + 8)
+    mode = "v1" if model_name == "YOLOv1" else "v2"
+    label = f"{model_name}-{hw[0]} bf16"
+    # The static size: no multi-scale re-targeting.
     config = TrainConfig(
         learning_rate_list=[1e-3], num_epoch_list=[TRAIN_EPOCHS],
         batch_size=TRAIN_BATCH, momentum=0.9, multiscale_sizes=(), seed=SEED,
     )
     train_pipe = DetectionPipeline(
-        train_set, HW, TRAIN_BATCH, config.max_boxes, seed=SEED)
+        train_set, hw, TRAIN_BATCH, config.max_boxes, mode=mode, seed=SEED)
     val_pipe = DetectionPipeline(
-        val_set, HW, TRAIN_BATCH, config.max_boxes, shuffle=False,
+        val_set, hw, TRAIN_BATCH, config.max_boxes, mode=mode, shuffle=False,
         drop_remainder=False)
-    model = YOLOv2(dtype=torch.bfloat16, device=DEVICE, seed=SEED)
+
+    shape = _v1_kwargs(hw) if mode == "v1" else dict(image_size=hw)
+
+    def make_model(seed):
+        return get_model(model_name, dtype=torch.bfloat16, device=DEVICE,
+                         seed=seed, **shape)
+
+    model = make_model(SEED)
     steps = TRAIN_EPOCHS * len(train_pipe)
     print(f"datasets and model built in {time.perf_counter() - t0:.1f} s; "
           f"{steps} steps of batch {TRAIN_BATCH}")
@@ -1208,6 +1248,8 @@ def phase_train(counters):
             raise AssertionError(
                 "the warp kernel must launch once per train step and the "
                 "plain warp never")
+        if any(n for k, n in launches.items() if k != "warp_affine"):
+            raise AssertionError(f"{label}: training launched {launches}")
         losses = history["train_loss_mean_list"] + history["val_loss_list"]
         print(f"train loss per epoch {history['train_loss_mean_list']}, val "
               f"{history['val_loss_list']}")
@@ -1236,8 +1278,7 @@ def phase_train(counters):
                       "final_model.ckpt"):
             if not os.path.exists(os.path.join(ckpt_path, fname)):
                 raise AssertionError(f"artifact {fname} missing")
-        other = TrainState(
-            YOLOv2(dtype=torch.bfloat16, device=DEVICE, seed=SEED + 1))
+        other = TrainState(make_model(SEED + 1))
         checkpoint.restore(os.path.join(ckpt_path, "final_model.ckpt"), other)
         restored = _state_tensors(other)
         if other.step != state.step or not all(
@@ -1255,10 +1296,12 @@ def phase_train(counters):
     batches = device_prefetch(train_pipe, DEVICE)
     batch = next(batches)
     batches.close()  # stops the pipeline's prefetch thread
+    if batch.image.dtype != torch.uint8:
+        raise AssertionError("the train batch must reach the warp as uint8")
     # One step's augmented batch: kernel vs plain two-pass warp.
     cfg = AugmentConfig()
     params = sample_augment_params(
-        trainer.generator, TRAIN_BATCH, cfg, HW, DEVICE)
+        trainer.generator, TRAIN_BATCH, cfg, hw, DEVICE)
     img_k, box_k, val_k = apply_augment(
         batch.image, batch.box, batch.valid, params, cfg, "kernel")
     img_p, box_p, val_p = apply_augment(
@@ -1271,6 +1314,14 @@ def phase_train(counters):
           f"{torch.equal(box_k, box_p) and torch.equal(val_k, val_p)}")
     if int(diff.max()) > 1 or not torch.equal(box_k, box_p):
         raise AssertionError("augmented batch differs by more than 1 level")
+    # The warp alone on the step's own images and maps, both routes.
+    _, _, err = _check_warp(
+        warp_affine, warp_affine_plain, batch.image.float(),
+        _invert_affine(params.ms), warp_max_shear(cfg), 0, 1e-3,
+        f"{label} step batch")
+    print(f"warp kernel vs plain on the step's images "
+          f"{tuple(batch.image.shape)} and maps: max |kernel - plain| "
+          f"{err:.3e} (bound 1e-3); uint8 route bitwise equal to f32")
 
     # Steady-state step time on a resident batch, host clock, synchronised.
     step_ms = []
@@ -1283,7 +1334,7 @@ def phase_train(counters):
     med = statistics.median(step_ms)
     q = statistics.quantiles(step_ms, n=4)
     img_s = TRAIN_BATCH / med * 1e3
-    print(f"YOLOv2-416 bf16 train step, batch {TRAIN_BATCH}, batch on the "
+    print(f"{label} train step, batch {TRAIN_BATCH}, batch on the "
           f"card: median {med:.3f} ms/step (quartiles {q[0]:.3f} / "
           f"{q[2]:.3f}, n={len(step_ms)}) -> {img_s:.1f} img/s")
 
@@ -1310,8 +1361,8 @@ def phase_train(counters):
         for (_, a), (name, b) in zip(marks, marks[1:]):
             totals[name] = totals.get(name, 0.0) + a.elapsed_time(b) / iters
     total = sum(totals.values())
-    print(f"train step breakdown, device ms per step (CUDA events, {iters} "
-          f"steps): " + ", ".join(
+    print(f"{label} train step breakdown, device ms per step (CUDA events, "
+          f"{iters} steps): " + ", ".join(
               f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in totals.items())
           + f"; sum {total:.3f}")
     _profile(lambda: trainer.train_step(state, batch, 1e-3, trainer.generator),
@@ -1748,6 +1799,276 @@ def phase_int8_map():
                              f"{maps}")
 
 
+def _v1_served(infer, model, images, units: bool = True):
+    """Call ``infer(images)`` with forward hooks on ``model`` and return
+    what that call computed: ``{name: (input, output)}`` for
+    ``"backbone"`` (images, features), ``""`` (images, head) and, with
+    ``units``, every GoogLeNet conv unit (conv, BN, ReLU)."""
+    from odc_tpu_torch.models.backbones.googlenet import BasicConv2d
+
+    seen = {}
+
+    def hook(name):
+        def keep(module, args, out):
+            seen[name] = (args[0], out)
+        return keep
+
+    hooks = [m.register_forward_hook(hook(n))
+             for n, m in model.named_modules()
+             if (units and isinstance(m, BasicConv2d))
+             or n in ("", "backbone")]
+    try:
+        infer(images)
+        sync()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _v1_layer_errors(model32, seen):
+    """Relative l2 error ||served - f32|| / ||f32|| of each served layer
+    against the f32 model's same layer on the layer's served input: each
+    GoogLeNet conv unit, and the Dense head (NHWC row-major flatten of the
+    served features, Dense, ReLU, Dense) written out here in f32."""
+    import torch.nn.functional as F
+
+    def rel(got, ref):
+        return float((got.float() - ref).norm() / ref.norm())
+
+    units = dict(model32.named_modules())
+    errs = {}
+    with torch.no_grad():
+        for name, (x, y) in seen.items():
+            if name not in ("", "backbone"):
+                errs[name] = rel(y, units[name](x.float()))
+        feat = seen["backbone"][1].float()
+        h = F.relu(F.linear(feat.reshape(feat.shape[0], -1),
+                            model32.fc1.weight, model32.fc1.bias))
+        y = seen[""][1]
+        ref = F.linear(h, model32.fc2.weight, model32.fc2.bias)
+        errs["dense head"] = rel(y, ref.reshape(y.shape))
+    return errs
+
+
+@contextlib.contextmanager
+def _fp8_weights(model):
+    """Every conv and Dense weight of ``model`` rounded to float8 e4m3 (one
+    scale a tensor, max |w| -> 448; 3 mantissa bits against bf16's 7),
+    restored on exit: the control of the v1 layer check."""
+    saved = {n: p.detach().clone() for n, p in model.named_parameters()
+             if p.dim() > 1}
+    params = dict(model.named_parameters())
+    try:
+        with torch.no_grad():
+            for n in saved:
+                w = params[n]
+                scale = w.abs().max() / 448.0
+                w.copy_((w / scale).to(torch.float8_e4m3fn).float() * scale)
+        yield
+    finally:
+        with torch.no_grad():
+            for n, w in saved.items():
+                params[n].copy_(w)
+
+
+def phase_yolov1(counters):
+    """The YOLOv1 path (serving and evaluation): YOLOv1-224 bf16 through
+    ``make_infer_fn`` (GoogLeNet -> Dense head -> decode_v1 -> NMS), a batch
+    of 8 at conf 0.9 and at a gap conf, then batch 512; ``Detector.detect``
+    on two JPEGs and ``evaluate_batched`` on 64.  ``counters`` are the
+    wrappers whose launch counts are zeroed just before the run and read
+    just after: the NMS kernel once a call, no other.  Returns the
+    launches by kernel and the batch-512 img/s."""
+    from odc_tpu_torch.core.nms import sorted_candidates
+    from odc_tpu_torch.eval import Detector, evaluate_batched
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.ops.cuda.nms_kernel import suppress, suppress_plain
+    from odc_tpu_torch.ops.detect import make_infer_fn
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 20)
+    requests = [
+        torch.randint(0, 256, (b, *V1_HW, 3), generator=gen, dtype=torch.uint8)
+        .to(DEVICE)
+        for b in (8, V1_BATCH)
+    ]
+    model = get_model("YOLOv1", dtype=torch.bfloat16, device=DEVICE,
+                      seed=SEED, **_v1_kwargs(V1_HW)).eval()
+    _calibrate_bn(model, requests[0], torch.Generator().manual_seed(SEED + 21))
+    infer = make_infer_fn(model, 0.9, 0.5, MAX_KEEP)
+    # A runtime conf in the largest gap of the first request's confs (8 to
+    # 48 survivors an image), from the model's own forward, which launches
+    # no counted kernel.
+    with torch.no_grad():
+        conf0 = model.decode(model(requests[0])).conf
+    n0 = requests[0].shape[0]
+    gap_thre = _gap_threshold(conf0, 8 * n0, 48 * n0)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"YOLOv1-{V1_HW[0]} built ({n_params} parameters), BN calibrated "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    calls = ([(requests[0], 0.9), (requests[0], gap_thre)]
+             + [(requests[1], 0.9)] * (3 + TIMED_CALLS))
+    once = {name: int(name == "nms_suppress") for name in counters}
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    outs, call_ms = [], []
+    for i, (images, conf_thre) in enumerate(calls):
+        before = {k: w.launches for k, w in counters.items()}
+        t = time.perf_counter()
+        out = infer(images, conf_thre=conf_thre)
+        sync()
+        if i >= len(calls) - TIMED_CALLS:
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        step = {k: w.launches - before[k] for k, w in counters.items()}
+        if step != once:
+            raise AssertionError(f"v1 call {i}: launches {step}, want {once}")
+        if i < 3:
+            outs.append((images, conf_thre, out))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: w.launches for k, w in counters.items()}
+    print(f"YOLOv1 path: {len(calls)} calls, launches {launches}")
+    for images, conf_thre, (boxes, conf, cls, keep) in outs:
+        b = images.shape[0]
+        if not (boxes.shape == (b, MAX_KEEP, 4) and conf.shape == (b, MAX_KEEP)
+                and cls.shape == (b, MAX_KEEP, model.num_cls)
+                and keep.shape == (b, MAX_KEEP)):
+            raise AssertionError("v1: unexpected output shapes")
+        if not all(bool(torch.isfinite(t).all()) for t in (boxes, conf, cls)):
+            raise AssertionError("v1: non-finite outputs")
+        if bool((conf[keep] < conf_thre).any()):
+            raise AssertionError("v1: a kept box is below the conf threshold")
+        print(f"v1 batch {b} at conf {conf_thre:.6f}: kept per image "
+              f"{keep.sum(1).tolist()[:16]}{' ...' if b > 16 else ''}")
+    if not bool(outs[1][2][3].any()):
+        raise AssertionError("v1: the gap threshold kept no box")
+    med = statistics.median(call_ms)
+    q = statistics.quantiles(call_ms, n=4)
+    img_s = V1_BATCH / med * 1e3
+    print(f"YOLOv1-{V1_HW[0]} bf16 e2e, batch {V1_BATCH}, images on the card: "
+          f"median {med:.3f} ms/call (quartiles {q[0]:.3f} / {q[2]:.3f}, n="
+          f"{len(call_ms)}) -> {img_s:.1f} img/s; peak device memory "
+          f"{peak_gb:.2f} GB")
+    # Input: the call up to GoogLeNet; the Dense head includes the cast of
+    # its f32 weights to bf16 (822 MB read a call).
+    _layer_breakdown(infer, requests[1], [
+        (model.backbone, "pre", "input"), (model.backbone, "post", "backbone"),
+        (model, "post", "dense head")])
+    _profile(lambda: infer(requests[1]))
+
+    # The served path layer by layer: each GoogLeNet conv unit and the
+    # Dense head, taken from an ``infer`` call on 16 images, against the
+    # f32 model's same layer on the same served input.  The whole bf16
+    # model is not held to the f32 model: a random BN-calibrated network
+    # amplifies a relative error about 1.2x an inception block, so bf16
+    # rounding reaches tens of percent at the head (printed below).
+    # Bounds: u = 2^-8 is bf16's unit roundoff.  The Dense head rounds its
+    # weights, the fc1 output and y, each within u: 4u = 2^-6.  A conv
+    # unit's weight rounding is relative to |w||x|, and after a max pool
+    # an input's mean is up to 4x its spread over samples, which the BN
+    # turns into up to 4x the relative error: 8u = 2^-5.  The control runs
+    # the same check with every weight rounded to fp8 e4m3 (u = 2^-4) and
+    # must fail it.
+    model32 = get_model("YOLOv1", dtype=torch.float32, device=DEVICE,
+                        seed=SEED, **_v1_kwargs(V1_HW))
+    model32.load_state_dict(model.state_dict())
+    model32.eval()
+    images = requests[1][:16]
+    bounds = {"dense head": 2.0 ** -6, "conv": 2.0 ** -5}
+
+    def worst(errs):
+        convs = {k: v for k, v in errs.items() if k != "dense head"}
+        name = max(convs, key=convs.get)
+        return errs["dense head"], name, convs[name], len(convs)
+
+    seen = _v1_served(infer, model, images)
+    dense, conv_name, conv, n_units = worst(_v1_layer_errors(model32, seen))
+    with torch.no_grad():
+        y_f32 = model32(images)
+    y16 = seen[""][1]
+    e2e = float((y16 - y_f32).norm() / y_f32.norm())
+    del seen
+    with _fp8_weights(model):
+        c_dense, c_name, c_conv, _ = worst(_v1_layer_errors(
+            model32, _v1_served(infer, model, images)))
+    del model32
+    print(f"v1 served layers vs f32 on the served inputs (relative l2, 16 "
+          f"images): dense head {dense:.5f} (bound {bounds['dense head']:.5f}"
+          f"), worst of {n_units} conv units {conv:.5f} at "
+          f"{conv_name} (bound {bounds['conv']:.5f}); control, fp8 e4m3 "
+          f"weights: dense head {c_dense:.5f}, worst conv {c_conv:.5f} at "
+          f"{c_name}; whole bf16 model vs f32 model {e2e:.5f} (max |y| "
+          f"{float(y_f32.abs().max()):.4f})")
+    if not (dense <= bounds["dense head"] and conv <= bounds["conv"]):
+        raise AssertionError("v1: a served layer left the bf16 bound")
+    if not (c_dense > bounds["dense head"] and c_conv > bounds["conv"]):
+        raise AssertionError("v1: the fp8 control passed the layer check, "
+                             "which cannot tell bf16 from fp8")
+    if not bool(torch.isfinite(y16).all()):
+        raise AssertionError("v1: non-finite served head")
+
+    # NMS on the path's own candidates (the head of a batch-512 ``infer``
+    # call): kernel == plain, at the product threshold and at a gap one;
+    # then timed at this shape.
+    y_serve = _v1_served(infer, model, requests[1], units=False)[""][1]
+    det = model.decode(y_serve)
+    boxes = det.boxes.reshape(V1_BATCH, -1, 4)
+    conf = det.conf.reshape(V1_BATCH, -1)
+    for thr in (0.9, _gap_threshold(conf, 8 * V1_BATCH, 48 * V1_BATCH)):
+        _, cand, surv = sorted_candidates(boxes, conf, conf >= thr, MAX_KEEP)
+        keep = suppress(cand, surv, 0.5)
+        if not torch.equal(keep, suppress_plain(cand, surv, 0.5)):
+            raise AssertionError(f"v1: NMS kernel != plain at conf {thr}")
+        print(f"v1 candidates [{V1_BATCH}, {MAX_KEEP}], conf {thr:.6f}: "
+              f"{int(surv.sum())} survivors, {int(keep.sum())} kept "
+              f"(kernel == plain)")
+    nms_ms = graph_ms(lambda: suppress(cand, surv, 0.5), 100)
+    nms_plain_ms = graph_ms(lambda: suppress_plain(cand, surv, 0.5), 5)
+    print(f"nms B={V1_BATCH} K={MAX_KEEP} on v1 candidates, device time per "
+          f"call in a CUDA graph: kernel {nms_ms:.4f} ms, plain "
+          f"{nms_plain_ms:.4f} ms")
+
+    with tempfile.TemporaryDirectory() as root:
+        dataset = _voc_val(EVAL_SIZES, root)
+        det = Detector(model, conf_thre=0.05)
+        # The first image of the set is 375x500, image 22 is 500x375.
+        for index in (0, EVAL_SIZES[0][2]):
+            _, img, _ = dataset[index]
+            h, w = img.shape[:2]
+            before = suppress.launches
+            pred = det.detect(img)
+            boxes = np.asarray(pred["bbox_list"]).reshape(-1, 4)
+            if suppress.launches != before + 1:
+                raise AssertionError("v1 detect: not one NMS launch")
+            if not (np.isfinite(boxes).all() and (boxes >= 0).all()
+                    and (boxes[:, 0::2] <= w).all()
+                    and (boxes[:, 1::2] <= h).all()
+                    and len(pred["lbl_list"]) == len(boxes)):
+                raise AssertionError(f"v1 detect at {h}x{w}: boxes outside "
+                                     "the image or malformed")
+            print(f"Detector(YOLOv1).detect {h}x{w}: {len(boxes)} boxes in "
+                  f"the image frame")
+        for run in range(2):  # the first run meets new shapes
+            before = suppress.launches
+            t = time.perf_counter()
+            result = evaluate_batched(det, dataset, image_hw=V1_HW,
+                                      batch_size=64)
+            wall = time.perf_counter() - t
+            m50, m5095 = _map_scores(result, det.cls_list)
+            print(f"eval evaluate_batched YOLOv1 {V1_HW[0]}x{V1_HW[1]} b64 "
+                  f"run {run + 1}: "
+                  f"{len(dataset)} images, {len(dataset) / wall:.1f} img/s "
+                  f"(host JPEG decode and resize included); mAP@.5 "
+                  f"{m50:.4f}, mAP[.5:.95] {m5095:.4f}; NMS launches "
+                  f"{suppress.launches - before}")
+            if suppress.launches == before:
+                raise AssertionError("v1 evaluate_batched: no NMS launch")
+    return launches, img_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1782,16 +2103,25 @@ def main() -> int:
     del model, scales
     torch.cuda.empty_cache()
     phase_int8_map()
-    train_launches, train_img_s = phase_train({
-        "nms_suppress": suppress, "superstem": superstem,
-        "warp_affine": warp_affine})
-    # Each kernel's launches are those of the main path that runs it; the
+    every = {"int8_matmul": matmul, "nms_suppress": suppress,
+             "superstem": superstem, "warp_affine": warp_affine}
+    train_launches, train_img_s = phase_train(every)
+    torch.cuda.empty_cache()
+    v1_launches, v1_img_s = phase_yolov1(every)
+    torch.cuda.empty_cache()
+    v1_train_launches, v1_train_img_s = phase_train(every, "YOLOv1", V1_HW)
+    print(f"launches by path: YOLOv2 serving {launches}, YOLOv2 training "
+          f"{train_launches}, YOLOv1 serving {v1_launches}, YOLOv1 training "
+          f"{v1_train_launches}")
+    # Each kernel's launches are those of the main paths that run it (the
+    # NMS: YOLOv2 and YOLOv1 serving; the warp: both training paths); the
     # GEMM's times are sums over the 20 GEMMs of one int8 call.
     kernels = [
         dict(name="nms_suppress", route="cuda",
              source="odc_tpu_torch/csrc/nms_suppress.cu",
              replaces="odc_tpu/ops/pallas/nms_kernel.py:100",
-             launches=launches["nms_suppress"], **nms),
+             launches=launches["nms_suppress"] + v1_launches["nms_suppress"],
+             **nms),
         dict(name="superstem", route="cuda",
              source="odc_tpu_torch/csrc/superstem.cu",
              replaces="odc_tpu/ops/pallas/superstem_kernel.py:270",
@@ -1799,7 +2129,8 @@ def main() -> int:
         dict(name="warp_affine", route="cuda",
              source="odc_tpu_torch/csrc/warp_affine.cu",
              replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
-             launches=train_launches["warp_affine"], **warp),
+             launches=(train_launches["warp_affine"]
+                       + v1_train_launches["warp_affine"]), **warp),
         dict(name="int8_matmul", route="cuda",
              source="odc_tpu_torch/csrc/int8_matmul.cu",
              replaces="scripts/probe_int8_mxu.py:76",
@@ -1807,7 +2138,8 @@ def main() -> int:
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
           f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "
-          f"native (bucket calls, img/s) {native}")
+          f"native (bucket calls, img/s) {native}; YOLOv1 e2e "
+          f"{v1_img_s:.1f} img/s, train {v1_train_img_s:.1f} img/s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

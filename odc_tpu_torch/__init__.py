@@ -16,7 +16,8 @@ and int8 PTQ (``ops/int8_engine.py``); YOLOv2 training with in-step device
 augmentation (``train/``, ``python -m odc_tpu_torch.train``), with the data
 path, the loss and the checkpoints it needs; native-size evaluation and VOC
 mAP (``ops/detect.py::make_native_infer_fn``, ``eval/``, ``core/ap.py``)
-and the trainer's mAP hook.
+and the trainer's mAP hook; YOLOv1 (GoogLeNet, ``models/yolov1.py``) for
+inference, evaluation and training.
 
 Entry points (model constructors, the training command line) default to
 ``device="cuda"`` and raise when no card is present; the CPU runs only when

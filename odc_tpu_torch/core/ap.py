@@ -12,8 +12,8 @@ Reference rule (the JAX package's default):
 ``dedup=True`` switches to the standard VOC matching (each GT consumed by
 at most one detection per level, greedily in confidence order).
 
-The grid-cell ``legacy_grid_aps`` of the JAX module comes with the YOLOv1
-slice of the port.
+``legacy_grid_aps`` is the grid-cell AP of the reference's legacy YOLOv1
+evaluator (no NMS).
 """
 
 from __future__ import annotations
@@ -148,3 +148,53 @@ class APAccumulator:
         out["mAP"] = float(np.mean(aps))
         return out
 
+
+def legacy_grid_aps(
+    iou_batch: np.ndarray,       # [N, S, S, B]
+    cls_tgt_batch: np.ndarray,   # [N, C] one-hot
+    cls_score_batch: np.ndarray, # [N, S, S, B, C]
+    bbox_img_id_batch: np.ndarray,  # [N]
+    levels: Sequence[float] = DEFAULT_LEVELS,
+) -> Dict:
+    """Grid-cell-level AP without NMS — capability parity with the
+    reference's legacy evaluator (``models/utils.py:341-461``, used only by
+    the dead ``yolov1 temp.py`` draft): per class, every grid slot of every
+    image containing that class is a prediction; a slot is TP at level L iff
+    the max IoU (over that image's boxes of the class) at the slot is >= L.
+    """
+    c = cls_tgt_batch.shape[-1]
+    out: Dict = {}
+    for level in levels:
+        aps_by_class = []
+        for cls_idx in range(c):
+            rows = np.where(cls_tgt_batch[:, cls_idx] == 1)[0]
+            sel_iou = iou_batch[rows]
+            sel_score = cls_score_batch[rows][:, :, :, :, cls_idx]
+            sel_img = bbox_img_id_batch[rows]
+            num_gt = sel_iou.shape[0]
+
+            tp_list, fp_list, score_list = [], [], []
+            for img_id in np.unique(sel_img):
+                m = sel_img == img_id
+                max_iou = sel_iou[m].max(0)        # [S, S, B]
+                score = sel_score[m][0]            # [S, S, B]
+                tp_list.append((max_iou >= level).ravel())
+                fp_list.append((max_iou < level).ravel())
+                score_list.append(score.ravel())
+
+            tp = np.hstack(tp_list)
+            fp = np.hstack(fp_list)
+            scores = np.hstack(score_list)
+            order = np.argsort(scores)[::-1]
+            tp_cum = np.cumsum(tp[order])
+            fp_cum = np.cumsum(fp[order])
+            prec = tp_cum / (tp_cum + fp_cum)
+            rec = tp_cum / num_gt
+            prec_rc = np.maximum.accumulate(prec[::-1])[::-1]
+            rec_diff = rec - np.hstack([[0], rec[:-1]])
+            aps_by_class.append(float(np.sum(prec_rc * rec_diff)))
+
+        out["APs by Class"] = aps_by_class
+        out[level] = float(np.mean(aps_by_class))
+    out["mAP"] = float(np.mean([out[l] for l in levels]))
+    return out

@@ -1,12 +1,15 @@
 """Inference and VOC mAP evaluation.
 
 Port of ``odc_tpu/eval/evaluator.py``.  ``Detector.detect`` is the
-single-image contract: YOLOv2 runs at the image's native size and returns
-the ``annot_pred`` dict (bbox/lbl/conf/cls-spec-conf lists).
+single-image contract: YOLOv2 runs at the image's native size, YOLOv1 at
+its network size (resized in, boxes clipped to the network frame and scaled
+back), and both return the ``annot_pred`` dict (bbox/lbl/conf/cls-spec-conf
+lists).
 
 ``evaluate_model`` is the per-image evaluation loop.  ``evaluate_batched``
 streams fixed-size batches through one inference function, boxes rescaled
-per image; ``evaluate_batched_native`` pads (never resizes) each image to a
+per image (a YOLOv1 only at its network size); ``evaluate_batched_native``
+(YOLOv2) pads (never resizes) each image to a
 32-multiple bucket and runs the masked native-size forward per bucket, so
 every image is scored at its native size.  All three share the AP math of
 ``core/ap.py``.
@@ -33,7 +36,7 @@ def _resize_host(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
         return img
     from PIL import Image
 
-    return np.asarray(
+    return np.array(
         Image.fromarray(img).resize((out_hw[1], out_hw[0]), Image.BILINEAR)
     )
 
@@ -43,10 +46,11 @@ def _numpy(out) -> tuple:
 
 
 class Detector:
-    """A YOLOv2 bound into inference functions (``ops/detect.py``).
+    """A YOLOv1 or YOLOv2 bound into inference functions
+    (``ops/detect.py``).
 
-    The functions fold the fused stem's weights when they are built: after
-    the model's weights change, build a new Detector."""
+    For a YOLOv2 the functions fold the fused stem's weights when they are
+    built: after the model's weights change, build a new Detector."""
 
     def __init__(
         self,
@@ -65,9 +69,7 @@ class Detector:
         self.conf_thre = conf_thre
         self.iou_thre = iou_thre
         self.max_keep = max_keep
-        self.mode = {"YOLOv1": "v1", "YOLOv3": "v3"}.get(
-            type(model).__name__, "v2"
-        )
+        self.mode = model.mode
         if (int8_neck or int8_scales is not None) and self.mode != "v2":
             # Silently dropping the int8 config would evaluate bf16 under
             # an int8 label.
@@ -75,7 +77,7 @@ class Detector:
                 "int8_neck/int8_scales are YOLOv2-only (the engine "
                 "hardcodes the Darknet-19/quadrant graph)"
             )
-        if self.mode != "v2":
+        if self.mode == "v3":
             raise NotImplementedError(
                 f"{type(model).__name__} is not ported yet: its resize "
                 f"detect contract comes with the {type(model).__name__} "
@@ -133,22 +135,36 @@ class Detector:
 
     def detect(self, img: np.ndarray, conf_score_thre: Optional[float] = None,
                iou_thre: Optional[float] = None) -> Dict[str, list]:
-        """One RGB uint8 image at its NATIVE size -> the ``annot_pred``
-        dict.  The pooling chain floors odd sizes and the quadrant neck
-        drops an odd trailing row/col; boxes come back in native pixels,
-        neither clipped nor resized."""
+        """One RGB uint8 image -> the ``annot_pred`` dict.
+
+        YOLOv2 runs at the image's NATIVE size: the pooling chain floors
+        odd sizes and the quadrant neck drops an odd trailing row/col;
+        boxes come back in native pixels, neither clipped nor resized.
+        YOLOv1 runs at ``model.image_size``: the image is resized in, the
+        boxes are clipped to the network frame and scaled back by
+        ``orig / net``."""
         orig_h, orig_w = img.shape[:2]
-        if orig_h < 64 or orig_w < 64:
+        if self.mode == "v1":
+            net_h, net_w = self.model.image_size
+            x = _resize_host(img, (net_h, net_w))
+        elif orig_h < 64 or orig_w < 64:
             raise ValueError(
                 f"YOLOv2 native-size detect needs images >= 64x64 "
                 f"(stride-32 grid plus the passthrough tap), got "
                 f"{orig_h}x{orig_w}"
             )
+        else:
+            x = img
         boxes, conf, cls_scores, keep = self.infer_batch(
-            img[None], conf_score_thre, iou_thre
+            x[None], conf_score_thre, iou_thre
         )
         boxes, conf, cls_scores = (
             boxes[0][keep[0]], conf[0][keep[0]], cls_scores[0][keep[0]])
+        if self.mode == "v1":
+            boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0.0, net_w - 1.0)
+            boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0.0, net_h - 1.0)
+            boxes = boxes * np.array([orig_w / net_w, orig_h / net_h,
+                                      orig_w / net_w, orig_h / net_h])
         lbl_idx = cls_scores.argmax(-1) if len(cls_scores) else np.zeros(0, int)
         return {
             "bbox_list": boxes.tolist(),
@@ -198,10 +214,16 @@ def evaluate_batched(
     dedup: bool = False,
     prefetch: int = 2,
 ) -> Dict[str, np.ndarray]:
-    """Streaming batched mAP: fixed-size batches at ``image_hw`` through
+    """Streaming batched mAP: fixed-size batches at ``image_hw`` (for a
+    YOLOv1 its ``image_size``, the only size its Dense head takes) through
     one inference function, predictions rescaled to each image's original
     size.  Decode and resize run on a prefetch thread, overlapped with the
     device's inference on the previous batch."""
+    image_hw = tuple(image_hw)
+    net_hw = tuple(detector.model.image_size)
+    if detector.mode == "v1" and image_hw != net_hw:
+        raise ValueError(f"a YOLOv1 evaluates at its image_size {net_hw}, "
+                         f"got image_hw={image_hw}")
     acc = APAccumulator(detector.cls_list, levels, dedup=dedup)
     n = len(dataset)
     h, w = image_hw

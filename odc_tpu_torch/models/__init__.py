@@ -1,3 +1,8 @@
+from odc_tpu_torch.models.registry import (
+    MODEL_REGISTRY, get_model, model_from_config,
+)
+from odc_tpu_torch.models.yolov1 import YOLOv1
 from odc_tpu_torch.models.yolov2 import YOLOv2
 
-__all__ = ["YOLOv2"]
+__all__ = ["MODEL_REGISTRY", "YOLOv1", "YOLOv2", "get_model",
+           "model_from_config"]

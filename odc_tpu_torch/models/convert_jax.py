@@ -1,16 +1,24 @@
-"""JAX (flax) <-> PyTorch weight bridge for YOLOv2.
+"""JAX (flax) <-> PyTorch weight bridge for YOLOv1 and YOLOv2.
 
 The inverse of ``odc_tpu/models/convert_torch.py``'s layout:
 
-* flax ``kernel`` [kh, kw, in, out] <-> ``weight`` [out, in, kh, kw];
+* flax ``kernel`` [kh, kw, in, out] <-> conv ``weight`` [out, in, kh, kw];
+* flax Dense ``kernel`` [in, out] <-> ``Linear.weight`` [out, in];
 * flax BN ``scale``/``bias`` plus ``batch_stats`` ``mean``/``var`` <->
   ``weight``/``bias``/``running_mean``/``running_var``.
 
 The flax side is a ``variables`` tree already turned into nested dicts of
 numpy arrays (``{"params": ..., "batch_stats": ...}``); a whole train state
 adds ``momentum`` (same layout as ``params``) and ``step``.  This module
-imports neither JAX nor flax.  Paths: ``Darknet19Backbone_0/stage{k}/ConvBnLeaky_{i}``
-(backbone), ``ConvBnLeaky_0`` (the 3x3 neck conv), ``Conv_0`` (the head).
+imports neither JAX nor flax.  The model is read off the tree itself
+(``GoogLeNetBackbone_0`` or ``fc1.weight`` mean YOLOv1).  Paths:
+
+* YOLOv2: ``Darknet19Backbone_0/stage{k}/ConvBnLeaky_{i}`` (backbone),
+  ``ConvBnLeaky_0`` (the 3x3 neck conv), ``Conv_0`` (the head);
+* YOLOv1: ``GoogLeNetBackbone_0/BasicConv2d_{0..2}`` (stem convs),
+  ``GoogLeNetBackbone_0/Inception_{0..8}/BasicConv2d_{0..5}`` (torchvision
+  order, numbered as flax numbers them: by construction, not by name),
+  ``Dense_0`` and ``Dense_1``.
 """
 
 from __future__ import annotations
@@ -21,10 +29,23 @@ import numpy as np
 import torch
 
 from odc_tpu_torch.models.backbones.darknet19 import _STAGES
+from odc_tpu_torch.models.backbones.googlenet import (
+    _INCEPTIONS, INCEPTION_UNITS,
+)
 
 
-def _blocks() -> Iterator[Tuple[Tuple[str, ...], str]]:
-    """(flax path of each ConvBnLeaky, matching PyTorch module prefix)."""
+def _blocks(v1: bool) -> Iterator[Tuple[Tuple[str, ...], str]]:
+    """(flax path of each conv + BN unit, matching PyTorch module prefix).
+    YOLOv1's convs have no bias, YOLOv2's have one."""
+    if v1:
+        g = "GoogLeNetBackbone_0"
+        for i, name in enumerate(("conv1", "conv2", "conv3")):
+            yield (g, f"BasicConv2d_{i}"), f"backbone.{name}"
+        for i, blk in enumerate(_INCEPTIONS):
+            for j, unit in enumerate(INCEPTION_UNITS):
+                yield ((g, f"Inception_{i}", f"BasicConv2d_{j}"),
+                       f"backbone.inception{blk}.{unit}")
+        return
     for k, stage in enumerate(_STAGES):
         for i in range(len(stage)):
             yield (
@@ -32,6 +53,32 @@ def _blocks() -> Iterator[Tuple[Tuple[str, ...], str]]:
                 f"backbone.stages.{k}.{i}",
             )
     yield ("ConvBnLeaky_0",), "neck"
+
+
+def _heads(v1: bool) -> Iterator[Tuple[str, str]]:
+    """(flax name, PyTorch name) of the layers after the last BN: Dense
+    layers for v1, the 1x1 conv for v2."""
+    if v1:
+        yield from (("Dense_0", "fc1"), ("Dense_1", "fc2"))
+    else:
+        yield "Conv_0", "head"
+
+
+def _is_v1_tree(params: Dict) -> bool:
+    return "GoogLeNetBackbone_0" in params
+
+
+def _is_v1_named(named: Dict) -> bool:
+    return "fc1.weight" in named
+
+
+def _to_torch_layout(kernel: np.ndarray) -> np.ndarray:
+    """flax conv [kh, kw, in, out] or Dense [in, out] -> PyTorch layout."""
+    return kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T
+
+
+def _to_flax_layout(weight: np.ndarray) -> np.ndarray:
+    return weight.transpose(2, 3, 1, 0) if weight.ndim == 4 else weight.T
 
 
 def _at(tree: Dict, path: Tuple[str, ...]) -> Dict:
@@ -45,18 +92,23 @@ def _t(a) -> torch.Tensor:
 
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """A flax YOLOv2 ``params``-shaped tree (the parameters themselves, or
-    the momentum tree, which has the same layout) -> ``{parameter name:
-    CPU float32 tensor}`` in the port's names."""
+    """A flax YOLOv1 or YOLOv2 ``params``-shaped tree (the parameters
+    themselves, or the momentum tree, which has the same layout) ->
+    ``{parameter name: CPU float32 tensor}`` in the port's names."""
+    v1 = _is_v1_tree(params)
     out = {}
-    for path, prefix in _blocks():
+    for path, prefix in _blocks(v1):
         p = _at(params, path)
-        out[f"{prefix}.conv.weight"] = _t(p["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
-        out[f"{prefix}.conv.bias"] = _t(p["Conv_0"]["bias"])
+        out[f"{prefix}.conv.weight"] = _t(
+            _to_torch_layout(p["Conv_0"]["kernel"]))
+        if "bias" in p["Conv_0"]:
+            out[f"{prefix}.conv.bias"] = _t(p["Conv_0"]["bias"])
         out[f"{prefix}.bn.weight"] = _t(p["BatchNorm_0"]["scale"])
         out[f"{prefix}.bn.bias"] = _t(p["BatchNorm_0"]["bias"])
-    out["head.weight"] = _t(params["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
-    out["head.bias"] = _t(params["Conv_0"]["bias"])
+    for flax_name, name in _heads(v1):
+        layer = params[flax_name]
+        out[f"{name}.weight"] = _t(_to_torch_layout(layer["kernel"]))
+        out[f"{name}.bias"] = _t(layer["bias"])
     return out
 
 
@@ -66,31 +118,32 @@ def jax_params_from(named: Dict[str, torch.Tensor]) -> Dict:
     def a(name):
         return named[name].detach().cpu().float().numpy().copy()
 
+    v1 = _is_v1_named(named)
     params: Dict = {}
-    for path, prefix in _blocks():
+    for path, prefix in _blocks(v1):
         p = params
         for key in path:
             p = p.setdefault(key, {})
-        p["Conv_0"] = {
-            "kernel": a(f"{prefix}.conv.weight").transpose(2, 3, 1, 0),
-            "bias": a(f"{prefix}.conv.bias"),
-        }
+        p["Conv_0"] = {"kernel": _to_flax_layout(a(f"{prefix}.conv.weight"))}
+        if f"{prefix}.conv.bias" in named:
+            p["Conv_0"]["bias"] = a(f"{prefix}.conv.bias")
         p["BatchNorm_0"] = {
             "scale": a(f"{prefix}.bn.weight"),
             "bias": a(f"{prefix}.bn.bias"),
         }
-    params["Conv_0"] = {
-        "kernel": a("head.weight").transpose(2, 3, 1, 0),
-        "bias": a("head.bias"),
-    }
+    for flax_name, name in _heads(v1):
+        params[flax_name] = {
+            "kernel": _to_flax_layout(a(f"{name}.weight")),
+            "bias": a(f"{name}.bias"),
+        }
     return params
 
 
 def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
-    """flax YOLOv2 variables (numpy leaves) -> the port's ``YOLOv2``
+    """flax YOLOv1 or YOLOv2 variables (numpy leaves) -> the port's model
     ``state_dict`` (CPU float32 tensors)."""
     sd = params_from_jax(variables["params"])
-    for path, prefix in _blocks():
+    for path, prefix in _blocks(_is_v1_tree(variables["params"])):
         s = _at(variables["batch_stats"], path)
         sd[f"{prefix}.bn.running_mean"] = _t(s["BatchNorm_0"]["mean"])
         sd[f"{prefix}.bn.running_var"] = _t(s["BatchNorm_0"]["var"])
@@ -98,10 +151,10 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 
 def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict:
-    """The inverse: a ``YOLOv2`` ``state_dict`` -> flax variables tree with
-    numpy leaves."""
+    """The inverse: a ``YOLOv1`` or ``YOLOv2`` ``state_dict`` -> flax
+    variables tree with numpy leaves."""
     stats: Dict = {}
-    for path, prefix in _blocks():
+    for path, prefix in _blocks(_is_v1_named(sd)):
         s = stats
         for key in path:
             s = s.setdefault(key, {})
@@ -137,3 +190,9 @@ def load_jax_yolov2(model, variables: Dict):
     (strict: every parameter and buffer must match).  Returns ``model``."""
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model
+
+
+def load_jax_yolov1(model, variables: Dict):
+    """Copy flax YOLOv1 variables (numpy leaves) into the port's ``model``
+    (strict, as :func:`load_jax_yolov2`).  Returns ``model``."""
+    return load_jax_yolov2(model, variables)

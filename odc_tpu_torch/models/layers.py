@@ -142,3 +142,20 @@ def extent_mask(shape, eh: torch.Tensor, ew: torch.Tensor) -> torch.Tensor:
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 max pool of an NHWC map, floor semantics (odd rows/cols drop)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def max_pool_3x3_ceil(x: torch.Tensor) -> torch.Tensor:
+    """3x3/2 max pool of an NHWC map, ``ceil_mode=True`` (torchvision
+    GoogLeNet's pools): the JAX package's ``(0, 1)`` -inf padding, so an
+    odd trailing row/col gets a window of its own."""
+    return F.max_pool2d(
+        x.permute(0, 3, 1, 2), 3, 2, ceil_mode=True
+    ).permute(0, 2, 3, 1)
+
+
+def max_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """3x3/1 max pool of an NHWC map with SAME (-inf) padding: the pool of
+    Inception branch 4."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 1, padding=1).permute(
+        0, 2, 3, 1
+    )

@@ -73,6 +73,10 @@ class YOLOv2(nn.Module):
     built on the CPU and moved to ``device``; convolutions run in ``dtype``.
     ``device`` defaults to ``"cuda"`` and raises if no card is present."""
 
+    mode = "v2"  # target assignment, loss and detect contract
+    # The ``ModelConfig`` fields the constructor takes (``train.py``'s).
+    config_fields = ("image_size",)
+
     def __init__(
         self,
         num_cls: int = 20,

@@ -1,9 +1,11 @@
-"""Box decode for the YOLOv2 head.
+"""Box decode for the YOLOv1 and YOLOv2 heads.
 
 Port of ``odc_tpu/ops/decode.py`` (``Detections``, ``YOLOV2_ANCHORS``,
-``decode_v2``): ``bx = sigmoid(tx) + cx``, ``bw = p_w * exp(tw)`` with the
-anchors in grid units, ``conf = sigmoid(t_o)``, ``cls_prob = softmax``,
-``cls_spec = conf * cls_prob``; corners in pixels.
+``decode_v1``, ``decode_v1_preactivated``, ``decode_v2``).  v2:
+``bx = sigmoid(tx) + cx``, ``bw = p_w * exp(tw)`` with the anchors in grid
+units, ``conf = sigmoid(t_o)``, ``cls_prob = softmax``, ``cls_spec = conf *
+cls_prob``.  v1: the reference's sigmoid sizes, ``bw = Wg * sigmoid(tw)``,
+and one softmax over the classes per cell.  Corners in pixels.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ class Detections(NamedTuple):
     """Decoded head output."""
 
     sig_txty: torch.Tensor  # [B, Hg, Wg, A, 2]  sigmoid(tx), sigmoid(ty)
-    twth: torch.Tensor      # [B, Hg, Wg, A, 2]  exp(tw), exp(th)
+    twth: torch.Tensor      # [B, Hg, Wg, A, 2]  exp (v2) or sigmoid (v1)
     boxes: torch.Tensor     # [B, Hg, Wg, A, 4]  (x1, y1, x2, y2) in pixels
     conf: torch.Tensor      # [B, Hg, Wg, A]     sigmoid(t_o)
-    cls_prob: torch.Tensor  # [B, Hg, Wg, A, C]
+    cls_prob: torch.Tensor  # [B, Hg, Wg, A, C]  (v1: [B, Hg, Wg, C], per cell)
     cls_spec: torch.Tensor  # [B, Hg, Wg, A, C]  conf * cls_prob
 
 
@@ -81,3 +83,48 @@ def decode_v2(
     cls_spec = cls_prob * conf[..., None]
 
     return Detections(sig_txty, exp_twth, boxes, conf, cls_prob, cls_spec)
+
+
+def _v1_boxes(sig_txty, sig_twth, image_hw, hg, wg):
+    """The reference's v1 box math (``yolov1.py:298-299``): centers in the
+    cell, sizes ``grid * sigmoid`` in grid units."""
+    cy, cx = _grid_offsets(hg, wg, sig_txty.dtype, sig_txty.device)
+    bx = sig_txty[..., 0] + cx
+    by = sig_txty[..., 1] + cy
+    bw = wg * sig_twth[..., 0]
+    bh = hg * sig_twth[..., 1]
+    return _corners(bx, by, bw, bh, image_hw, hg, wg)
+
+
+def decode_v1(
+    y: torch.Tensor, image_hw: Tuple[int, int], num_anchors: int = 2
+) -> Detections:
+    """Decode a YOLOv1 head output ``y`` [B, Hg, Wg, A * 5 + C] for an input
+    of ``image_hw`` pixels: sigmoid over every box value, softmax over the
+    cell's classes."""
+    b, hg, wg, d = y.shape
+    num_cls = d - num_anchors * 5
+    box_vals = y[..., : num_anchors * 5].reshape(b, hg, wg, num_anchors, 5)
+    sig = torch.sigmoid(box_vals)
+    sig_txty, sig_twth, conf = sig[..., 0:2], sig[..., 2:4], sig[..., 4]
+    boxes = _v1_boxes(sig_txty, sig_twth, image_hw, hg, wg)
+    cls_prob = torch.softmax(y[..., -num_cls:], dim=-1)  # [B, Hg, Wg, C]
+    cls_spec = cls_prob[..., None, :] * conf[..., :, None]
+    return Detections(sig_txty, sig_twth, boxes, conf, cls_prob, cls_spec)
+
+
+def decode_v1_preactivated(
+    y: torch.Tensor, image_hw: Tuple[int, int], num_anchors: int = 2
+) -> Detections:
+    """Decode the legacy-draft v1 head, whose one sigmoid over the whole
+    output the model already applied: box values are read as they are, and
+    the class probabilities are those sigmoids (no softmax).  Box corners
+    follow :func:`decode_v1`."""
+    b, hg, wg, d = y.shape
+    num_cls = d - num_anchors * 5
+    vals = y[..., : num_anchors * 5].reshape(b, hg, wg, num_anchors, 5)
+    sig_txty, sig_twth, conf = vals[..., 0:2], vals[..., 2:4], vals[..., 4]
+    boxes = _v1_boxes(sig_txty, sig_twth, image_hw, hg, wg)
+    cls_prob = y[..., -num_cls:]
+    cls_spec = cls_prob[..., None, :] * conf[..., :, None]
+    return Detections(sig_txty, sig_twth, boxes, conf, cls_prob, cls_spec)

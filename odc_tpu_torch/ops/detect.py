@@ -1,11 +1,14 @@
 """End-to-end batched inference: uint8 images -> NMS'd boxes, on the card.
 
 Port of ``odc_tpu/ops/detect.py::make_infer_fn``.  One deliberate routing
-difference from the JAX package's default: stages 1-2 of Darknet-19 run as
-the fused superstem kernel (``ops/cuda/superstem_kernel.py``), with the BN
-folded into its weights once, when the function is built.  It computes the
-same function as the unfused stem within bf16 rounding.  The suppression is
-one NMS kernel launch for the whole batch.
+difference from the JAX package's default: on a Darknet-19 backbone (a
+YOLOv2), stages 1-2 run as the fused superstem kernel
+(``ops/cuda/superstem_kernel.py``), with the BN folded into its weights
+once, when the function is built.  It
+computes the same function as the unfused stem within bf16 rounding.  A
+YOLOv1 runs its own forward (GoogLeNet, then the Dense head, whose f32
+weights are cast to the compute dtype at every call, as flax does).  The
+suppression is one NMS kernel launch for the whole batch.
 
 The int8 arguments follow the JAX package: ``int8_scales`` runs the full
 int8 PTQ engine (``ops/int8_engine.py``) in place of the model forward and
@@ -25,6 +28,7 @@ from typing import Callable
 import torch
 
 from odc_tpu_torch.core.nms import class_offset_boxes, nms_padded
+from odc_tpu_torch.models.backbones.darknet19 import Darknet19Backbone
 from odc_tpu_torch.ops.cuda.superstem_kernel import fold_weights, superstem
 from odc_tpu_torch.ops.int8_engine import scales_tensor, yolov2_int8_forward
 from odc_tpu_torch.ops.quantize import int8_conv_bn_leaky
@@ -55,15 +59,16 @@ def make_infer_fn(
     int8_stem: str = "s2d",
     compact: bool = False,
 ) -> Callable:
-    """Build ``infer(images, conf_thre=..., iou_thre=...)`` for a YOLOv2.
+    """Build ``infer(images, conf_thre=..., iou_thre=...)`` for a YOLOv1 or
+    a YOLOv2.
 
     ``images`` is [B, H, W, 3] uint8 (moved to the model's device).  Returns
     ``(boxes [B, max_keep, 4], conf [B, max_keep], cls_scores
     [B, max_keep, C], keep [B, max_keep])``, or with ``compact``
     ``(boxes, conf, labels int32, label_scores, keep)``.  The thresholds
     are runtime arguments; ``max_keep`` is fixed.  ``class_wise`` runs
-    per-class suppression.  The model is put in eval mode and its stem
-    weights are folded now: later weight changes need a new function.
+    per-class suppression.  The model is put in eval mode and a YOLOv2's
+    stem weights are folded now: later weight changes need a new function.
 
     ``int8_scales`` (a [22, 2] range matrix from
     ``ops/int8_engine.py::calibrate``, tensor or numpy): run the full int8
@@ -83,9 +88,13 @@ def make_infer_fn(
             )
     model.eval()
     device = next(model.parameters()).device
+    # The superstem computes Darknet-19's stages 1-2 and a forward that
+    # takes ``stem_out`` runs the rest: a capability of the backbone.
+    fused_stem = int8_scales is None and isinstance(
+        getattr(model, "backbone", None), Darknet19Backbone)
     if int8_scales is not None:
         int8_scales = scales_tensor(int8_scales, device)
-    else:
+    elif fused_stem:
         w1, w2 = stem_weights(model)
 
     def int8_neck_conv(h):
@@ -98,6 +107,8 @@ def make_infer_fn(
                 num_anchor_box=model.num_anchor_box, num_cls=model.num_cls,
                 stem=int8_stem,
             )
+        if not fused_stem:
+            return model(images)
         return model(images, stem_out=superstem(images, w1, w2),
                      neck_override=int8_neck_conv if int8_neck else None)
 

@@ -5,9 +5,12 @@ Builds ``ckpts/<model>/<timestamp>``, constructs the VOC dataset, the model
 and the pipelines, and runs the staged training schedule on ``--device``
 (default ``cuda``; there is no silent move to the CPU).
 
-    python -m odc_tpu_torch.train --dataset-dir datasets --augment device
+    python -m odc_tpu_torch.train --model YOLOv2 --dataset-dir datasets
     python -m odc_tpu_torch.train --device cpu --synthetic --epochs 1 \\
         --batch-size 4 --image-size 64          # smoke run without a card
+
+``--model`` defaults to YOLOv1, as the JAX package's ``train.py`` does;
+``--image-size`` sets a YOLOv1's grid to ``size // 32``.
 
 ``--eval-map-conf`` is the one confidence threshold of both mAP runs: the
 in-training hook (``--eval-map-every``) and the run after training
@@ -35,7 +38,7 @@ def parse_args(argv=None):
         prog="python -m odc_tpu_torch.train", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("--model", default="YOLOv2",
+    p.add_argument("--model", default="YOLOv1",
                    choices=["YOLOv1", "YOLOv2", "YOLOv3"])
     p.add_argument("--dataset-dir", default="datasets")
     p.add_argument("--ckpt-root", default="ckpts")
@@ -48,7 +51,7 @@ def parse_args(argv=None):
                    choices=["bfloat16", "float32"])
     p.add_argument("--image-size", type=int, default=None,
                    help="square input-size override, multiple of 32 "
-                   "(default: the model config's 416)")
+                   "(default: the model config's 224 v1 / 416 v2)")
     p.add_argument("--no-augment", action="store_true",
                    help="shorthand for --augment none")
     p.add_argument(
@@ -80,9 +83,9 @@ def parse_args(argv=None):
                    help=_LATER["model_parallel"])
     args = p.parse_args(argv)
 
-    if args.model != "YOLOv2":
-        p.error(f"--model {args.model} is not ported yet: it comes with the "
-                f"{args.model} slice of the port (YOLOv2 only for now)")
+    if args.model == "YOLOv3":
+        p.error("--model YOLOv3 is not ported yet: it comes with the YOLOv3 "
+                "slice of the port (YOLOv1 and YOLOv2 for now)")
     aug_mode = "none" if args.no_augment else args.augment
     if aug_mode == "host":
         p.error("--augment host is not ported yet: host augmentation comes "
@@ -107,7 +110,7 @@ def main(argv=None) -> None:
     from odc_tpu_torch.config import BATCH_SIZE, MODEL_CONFIG, TRAIN_CONFIG
     from odc_tpu_torch.data.pipeline import DetectionPipeline
     from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
-    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.models import model_from_config
     from odc_tpu_torch.ops.augment import AugmentConfig
     from odc_tpu_torch.train import Trainer, checkpoint
 
@@ -122,9 +125,14 @@ def main(argv=None) -> None:
         make_synthetic_voc(args.dataset_dir, num_train=16, num_val=8)
     dataset = VOC(dataset_dir=args.dataset_dir)
 
-    image_size = MODEL_CONFIG[args.model].image_size
+    model_cfg = dataclasses.replace(MODEL_CONFIG[args.model])
     if args.image_size is not None:
-        image_size = (args.image_size, args.image_size)
+        model_cfg.image_size = (args.image_size, args.image_size)
+        # v1's grid is size // 32 (224 -> S = 7), as in train.py; a model
+        # takes only the fields it has (``config_fields``).
+        model_cfg.num_grid_cell_in_height = args.image_size // 32
+        model_cfg.num_grid_cell_in_width = args.image_size // 32
+    image_size = model_cfg.image_size
     train_cfg = dataclasses.replace(
         TRAIN_CONFIG[args.model]["VOC2012"],
         batch_size=args.batch_size or BATCH_SIZE,
@@ -138,10 +146,8 @@ def main(argv=None) -> None:
         train_cfg.momentum = args.momentum
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = YOLOv2(
-        image_size=image_size, dtype=dtype, device=args.device,
-        seed=train_cfg.seed,
-    )
+    model = model_from_config(model_cfg, dtype=dtype, device=args.device,
+                              seed=train_cfg.seed)
     print(f"device: {next(model.parameters()).device}")
 
     train_pipe = DetectionPipeline(
@@ -149,7 +155,7 @@ def main(argv=None) -> None:
         image_hw=image_size,
         batch_size=train_cfg.batch_size,
         max_boxes=train_cfg.max_boxes,
-        mode="v2",
+        mode=model.mode,
         cls_list=dataset.cls_list,
         seed=train_cfg.seed,
     )
@@ -158,7 +164,7 @@ def main(argv=None) -> None:
         image_hw=image_size,
         batch_size=train_cfg.batch_size,
         max_boxes=train_cfg.max_boxes,
-        mode="v2",
+        mode=model.mode,
         cls_list=dataset.cls_list,
         shuffle=False,
         # Validate over EVERY image like the reference; the tail batch is

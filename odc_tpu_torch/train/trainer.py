@@ -124,7 +124,9 @@ def make_train_step(
 ) -> Callable:
     """Build the train step: ``(state, batch, lr, generator) -> (state,
     metrics)``; ``batch`` holds tensors on the model's device, ``metrics``
-    0-dim tensors there (no host sync).
+    0-dim tensors there (no host sync).  A YOLOv1 (``mode="v1"``) draws its
+    dropout mask from ``generator``, after the augmentation's draws (the
+    JAX step's ``rngs={"dropout": rng}``).
 
     With ``augment_cfg`` set, the on-device augmentation
     (``odc_tpu_torch.ops.augment``) runs inside the step, drawing from
@@ -156,7 +158,7 @@ def make_train_step(
         mark("augment")
 
         model.zero_grad(set_to_none=True)
-        y = model(image)
+        y = model(image, generator=generator) if mode == "v1" else model(image)
         mark("forward")
         det = model.decode(y, tuple(image.shape[1:3]))
         loss, parts = yolo_loss(
@@ -244,9 +246,7 @@ class Trainer:
         self.val_pipeline = val_pipeline
         self.config = config
         self.ckpt_path = ckpt_path
-        self.mode = mode or {
-            "YOLOv1": "v1", "YOLOv3": "v3"
-        }.get(type(model).__name__, "v2")
+        self.mode = mode or model.mode
         self.anchors = (
             getattr(model, "anchors", None) if self.mode == "v2" else None
         )

@@ -258,10 +258,11 @@ def test_evaluate_batched_native_refusals(scene):
 
 
 def test_detector_refuses_models_not_ported():
-    """YOLOv1/YOLOv3 detectors wait for their slices; an int8 setting on
-    them is refused first, as in JAX."""
-    yolov1 = type("YOLOv1", (), {})()
+    """A YOLOv3 detector waits for its slice; an int8 setting on a model
+    other than YOLOv2 is refused first, as in JAX."""
+    yolov3 = type("YOLOv3", (), {"mode": "v3"})()
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        Detector(yolov1)
+        Detector(yolov3)
+    yolov1 = type("YOLOv1", (), {"mode": "v1"})()
     with pytest.raises(ValueError, match="YOLOv2-only"):
         Detector(yolov1, int8_neck=True)

@@ -625,9 +625,16 @@ def test_cli_names_the_later_slice(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("model", ["YOLOv1", "YOLOv2"])
+def test_cli_parses_the_ported_models(model):
+    args = cli.parse_args(["--model", model, "--image-size", "64"])
+    assert (args.model, args.image_size) == (model, 64)
+
+
 def test_cli_defaults():
+    """``--model`` defaults to YOLOv1, as the JAX package's ``train.py``."""
     args = cli.parse_args([])
-    assert (args.model, args.device, args.augment) == ("YOLOv2", "cuda", "device")
+    assert (args.model, args.device, args.augment) == ("YOLOv1", "cuda", "device")
     assert cli.parse_args(["--no-augment"]).augment == "none"
     assert (args.eval_map, args.eval_map_every, args.eval_map_conf) == (
         False, 0, 0.05)
@@ -686,6 +693,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
     """``python -m odc_tpu_torch.train`` end to end in a subprocess."""
     proc = subprocess.run(
         [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
+         "--model", "YOLOv2",
          "--synthetic", "--epochs", "1", "--batch-size", "4",
          "--image-size", "64", "--augment", "device",
          "--dataset-dir", str(tmp_path / "voc"),
@@ -698,4 +706,27 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert {p.name for p in run_dir.iterdir()} == {
         "train_config.json", "metrics.jsonl", "training_result.pkl",
         "best_model.ckpt", "final_model.ckpt"}
+    _remove_checkpoints(run_dir)
+
+
+def test_cli_trains_yolov1_on_the_cpu(tmp_path):
+    """``--model YOLOv1`` at 64x64 (grid 2, from ``--image-size``) trains
+    one epoch with device augmentation and dropout, and scores mAP with
+    ``--eval-map-every``."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
+         "--model", "YOLOv1", "--synthetic", "--epochs", "1",
+         "--image-size", "64", "--batch-size", "4", "--eval-map-every", "1",
+         "--dataset-dir", str(tmp_path / "voc"),
+         "--ckpt-root", str(tmp_path / "ckpts")],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "Epoch: 1 --> mAP@.5:" in proc.stdout
+    (run_dir,) = (tmp_path / "ckpts" / "YOLOv1").iterdir()
+    rows = [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["kind"] for r in rows] == ["train_epoch", "val_epoch",
+                                        "map_eval"]
+    assert np.isfinite(rows[0]["loss_mean"]) and rows[0]["loss_mean"] > 0
     _remove_checkpoints(run_dir)
