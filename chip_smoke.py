@@ -44,7 +44,19 @@ just before and read just after:
   against its plain version on the path's candidates;
   ``Detector.detect`` on two JPEGs and ``evaluate_batched`` on 64; then
   YOLOv1-224 training at batch 32 (dropout 0.5) as above, the warp held
-  against its plain version on the step's own images and maps.
+  against its plain version on the step's own images and maps;
+* YOLOv3 — YOLOv3-416 bf16 (Darknet-53 -> FPN -> three heads -> decode_v3
+  -> NMS over 10647 candidates an image) through ``make_infer_fn``, a batch
+  of 8 then batches of 256, in bf16 (1 NMS launch a call, no other
+  kernel) and with ``int8_dynamic`` (32 GEMM launches a call, all on the
+  wgmma route, and 1 NMS); the NMS against its plain version on the
+  path's candidates, every GEMM of one int8 call against the plain
+  version and ``torch._int_mm``, each served int8 layer against its f32
+  counterpart on the served input (a 4-bit control must fail that check);
+  ``Detector.detect`` on two JPEGs and ``evaluate_batched`` on 64 in both
+  precisions; the int8 mAP@.5 of a YOLOv3 overfit at 96x96 (bf16 above
+  0.3, ``int8_dynamic`` at most 0.15 below it); then YOLOv3-416 training
+  at batch 32 as above.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with each kernel's launches, error and times, and as its last line
@@ -1176,15 +1188,19 @@ def _state_tensors(state):
 
 
 def phase_train(counters, model_name: str = "YOLOv2", hw=HW):
-    """A training path: model ``model_name`` at ``hw`` (YOLOv2-416 or
-    YOLOv1-224, whose dropout draws from the trainer's generator), bf16, at
-    batch 32 through Trainer.fit with in-step device augmentation;
-    ``counters`` are the wrappers whose launch counts are zeroed just
-    before ``fit`` and read just after."""
-    from odc_tpu_torch.config import TrainConfig
+    """A training path: model ``model_name`` at ``hw`` (YOLOv2-416,
+    YOLOv1-224, whose dropout draws from the trainer's generator, or
+    YOLOv3-416, whose loss assigns its own targets), bf16, at batch 32
+    through Trainer.fit with in-step device augmentation and the model's
+    loss weights; ``counters`` are the wrappers whose launch counts are
+    zeroed just before ``fit`` and read just after."""
+    import dataclasses
+
+    from odc_tpu_torch.config import TRAIN_CONFIG
     from odc_tpu_torch.data.pipeline import DetectionPipeline
     from odc_tpu_torch.data.prefetch import device_prefetch
     from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.models.registry import model_class
     from odc_tpu_torch.ops.augment import (
         AugmentConfig, _invert_affine, apply_augment, sample_augment_params,
         warp_max_shear,
@@ -1200,10 +1216,12 @@ def phase_train(counters, model_name: str = "YOLOv2", hw=HW):
     t0 = time.perf_counter()
     train_set = _RectanglesOnNoise(TRAIN_IMAGES, hw, SEED + 7)
     val_set = _RectanglesOnNoise(VAL_IMAGES, hw, SEED + 8)
-    mode = "v1" if model_name == "YOLOv1" else "v2"
+    mode = model_class(model_name).mode
     label = f"{model_name}-{hw[0]} bf16"
-    # The static size: no multi-scale re-targeting.
-    config = TrainConfig(
+    # The model's loss weights (v3: xy and wh at 1), the static size: no
+    # multi-scale re-targeting.
+    config = dataclasses.replace(
+        TRAIN_CONFIG[model_name]["VOC2012"],
         learning_rate_list=[1e-3], num_epoch_list=[TRAIN_EPOCHS],
         batch_size=TRAIN_BATCH, momentum=0.9, multiscale_sizes=(), seed=SEED,
     )
@@ -1741,62 +1759,80 @@ def _map50(result, cls_list):
     return float(np.mean(aps)) if aps else 0.0
 
 
-def phase_int8_map():
+def phase_int8_map(model_name: str = "YOLOv2"):
     """int8 accuracy on a TRAINED model (the counterpart of the JAX
-    package's test of it): overfit a full-width f32 YOLOv2 at 96x96 on 8
-    synthetic images (80 steps, momentum 0.9, no weight decay, lr 1e-3, no
-    augmentation, one fixed batch), calibrate on them, then mAP@.5 through
-    ``evaluate_batched`` (conf 0.1, max_keep 16): bf16 must exceed 0.3 and
-    int8 lose at most 0.15 of it."""
+    package's test of it): overfit a full-width f32 ``model_name`` (YOLOv2
+    or YOLOv3) at 96x96 on 8 synthetic images (80 steps, momentum 0.9, no
+    weight decay, lr 1e-3, the model's loss weights, no augmentation, one
+    fixed batch), then mAP@.5 through ``evaluate_batched`` (conf 0.1,
+    max_keep 16) in f32, bf16 and int8: for YOLOv2 the PTQ engine
+    calibrated on the images, for YOLOv3 the bf16 model with
+    ``int8_dynamic``.  bf16 must exceed 0.3 and int8 lose at most 0.15 of
+    it."""
+    from odc_tpu_torch.config import TRAIN_CONFIG
     from odc_tpu_torch.data.pipeline import DetectionPipeline
     from odc_tpu_torch.data.prefetch import device_prefetch
     from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
     from odc_tpu_torch.eval import Detector, evaluate_batched
     from odc_tpu_torch.losses.yolo_loss import Lambdas
-    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.models import get_model
     from odc_tpu_torch.ops import int8_engine as te
     from odc_tpu_torch.train.trainer import TrainState, make_train_step
 
     t0 = time.perf_counter()
+    cfg = TRAIN_CONFIG[model_name]["VOC2012"]
+    lambdas = Lambdas(cfg.lambda_xy, cfg.lambda_wh, cfg.lambda_conf,
+                      cfg.lambda_noobj, cfg.lambda_cls)
+
+    def make(dtype, **kw):
+        return get_model(model_name, image_size=MAP_HW, dtype=dtype,
+                         device=DEVICE, seed=SEED, **kw)
+
     with tempfile.TemporaryDirectory() as root:
         make_synthetic_voc(root, num_train=8, num_val=0, image_hw=MAP_HW,
                            seed=SEED)
         voc = VOC(dataset_dir=root)
-        model = YOLOv2(image_size=MAP_HW, dtype=torch.float32, device=DEVICE,
-                       seed=SEED)
+        model = make(torch.float32)
         state = TrainState(model)
         pipe = DetectionPipeline(voc.train_dataset, MAP_HW, 8, max_boxes=8,
-                                 shuffle=False, prefetch=0)
+                                 mode=model.mode, shuffle=False, prefetch=0)
         batch = next(iter(device_prefetch(pipe, DEVICE)))
-        step = make_train_step("v2", Lambdas(), model.anchors, momentum=0.9,
-                               weight_decay=0.0)
+        step = make_train_step(model.mode, lambdas, model.anchors,
+                               momentum=0.9, weight_decay=0.0)
         losses = []
         for _ in range(MAP_STEPS):
             state, metrics = step(state, batch, 1e-3)
             losses.append(metrics["loss"])
         losses = torch.stack(losses).tolist()
-        scales = te.calibrate(model, batch.image)
-        model16 = YOLOv2(image_size=MAP_HW, dtype=torch.bfloat16,
-                         device=DEVICE, seed=SEED)
+        model16 = make(torch.bfloat16)
         model16.load_state_dict(model.state_dict())
+        if model.mode == "v3":
+            label, int8_model, kw = "int8_dynamic", make(
+                torch.bfloat16, int8_dynamic=True), {}
+            int8_model.load_state_dict(model.state_dict())
+        else:
+            label, int8_model = "int8 (s2d)", model
+            kw = dict(int8_scales=te.calibrate(model, batch.image))
         maps = {}
-        for name, mdl, kw in (("f32", model, {}), ("bf16", model16, {}),
-                              ("int8", model, dict(int8_scales=scales))):
-            det = Detector(mdl, conf_thre=0.1, iou_thre=0.5, max_keep=16, **kw)
+        for name, mdl, kwargs in (("f32", model, {}), ("bf16", model16, {}),
+                                  ("int8", int8_model, kw)):
+            det = Detector(mdl, conf_thre=0.1, iou_thre=0.5, max_keep=16,
+                           **kwargs)
             maps[name] = _map50(evaluate_batched(
                 det, voc.train_dataset, image_hw=MAP_HW, batch_size=8),
                 det.cls_list)
-    print(f"int8_map: {MAP_STEPS} f32 steps at {MAP_HW[0]}x{MAP_HW[1]}, batch "
-          f"8, loss {losses[0]:.3f} -> {losses[-1]:.4f}; mAP@.5 on the 8 "
-          f"trained images (conf 0.1, max_keep 16): f32 {maps['f32']:.4f}, "
-          f"bf16 {maps['bf16']:.4f}, int8 (s2d) {maps['int8']:.4f}, drop "
-          f"{maps['bf16'] - maps['int8']:+.4f} (bound 0.15); "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"int8_map {model_name}: {MAP_STEPS} f32 steps at {MAP_HW[0]}x"
+          f"{MAP_HW[1]}, batch 8, loss {losses[0]:.3f} -> {losses[-1]:.4f}; "
+          f"mAP@.5 on the 8 trained images (conf 0.1, max_keep 16): f32 "
+          f"{maps['f32']:.4f}, bf16 {maps['bf16']:.4f}, {label} "
+          f"{maps['int8']:.4f}, drop {maps['bf16'] - maps['int8']:+.4f} "
+          f"(bound 0.15); {time.perf_counter() - t0:.1f} s")
     if not math.isfinite(losses[-1]) or not maps["bf16"] > 0.3:
-        raise AssertionError(f"int8_map: the model did not learn: {maps}")
+        raise AssertionError(f"int8_map {model_name}: the model did not "
+                             f"learn: {maps}")
     if not maps["int8"] >= maps["bf16"] - 0.15:
-        raise AssertionError(f"int8_map: int8 mAP@.5 dropped beyond 0.15: "
-                             f"{maps}")
+        raise AssertionError(f"int8_map {model_name}: int8 mAP@.5 dropped "
+                             f"beyond 0.15: {maps}")
 
 
 def _v1_served(infer, model, images, units: bool = True):
@@ -2069,6 +2105,367 @@ def phase_yolov1(counters):
     return launches, img_s
 
 
+# YOLOv3 path: YOLOv3-416 (Darknet-53, FPN, 9 anchors), served at batch 256
+# (the first batch of the JAX package's bench_yolov3), 10647 candidates an
+# image; 32 int8 convs a call with int8_dynamic; trained at TRAIN_BATCH.
+V3_HW = (416, 416)
+V3_BATCH = 256
+V3_INT8_LAYERS = 32
+# Relative l2 bound of each served int8 layer against its f32 counterpart
+# (see phase_yolov3).
+V3_INT8_BOUND = 2.0 ** -4
+
+
+def _int8_blocks(model):
+    """{name: ConvBnLeaky} of the 3x3 convs that ``int8_dynamic`` runs in
+    int8 (at least 128 input channels)."""
+    from odc_tpu_torch.models.layers import ConvBnLeaky
+
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, ConvBnLeaky) and m.int8_dynamic
+            and m.conv.kernel_size == (3, 3) and m.conv.in_channels >= 128}
+
+
+def _v3_served(infer, model, images):
+    """Call ``infer(images)`` with forward hooks and return what that call
+    computed: ``{name: (input, output)}`` of each int8 layer and ``""``
+    (images, heads)."""
+    seen = {}
+    mods = dict(_int8_blocks(model))
+    mods[""] = model
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, n=n: seen.__setitem__(n, (args[0], out)))
+        for n, m in mods.items()]
+    try:
+        infer(images)
+        sync()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+@contextlib.contextmanager
+def _four_bit_codes():
+    """Dynamic quantization to 4-bit codes (clamp +-7, step amax / 7) in
+    place of int8's: the control of the v3 int8 layer check."""
+    from odc_tpu_torch.ops import quantize
+
+    real = quantize.quantize_dynamic
+
+    def q4(x):
+        xf = x.float()
+        scale = xf.abs().amax().clamp_min(1e-8) / 7.0
+        return torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8), \
+            scale
+
+    quantize.quantize_dynamic = q4
+    try:
+        yield
+    finally:
+        quantize.quantize_dynamic = real
+
+
+def _v3_layer_errors(model32, seen):
+    """Relative l2 ||served - f32|| / ||f32|| of each served int8 layer
+    against the f32 model's same ConvBnLeaky on the layer's served input."""
+    mods = dict(model32.named_modules())
+    errs = {}
+    with torch.no_grad():
+        for name, (x, y) in seen.items():
+            if name:
+                ref = mods[name](x.float())
+                errs[name] = float((y.float() - ref).norm() / ref.norm())
+    return errs
+
+
+def _serve_v3(label, model, requests, counters, gemms):
+    """YOLOv3 serving through ``make_infer_fn``: a batch of 8 at conf 0.9
+    and at a gap conf, then 23 batches of 256, each call checked for 1 NMS
+    launch, no superstem and ``gemms`` GEMM launches, all on the wgmma
+    route; then times, memory, the layer breakdown and the profile.
+    Returns (launches, ms per call, img/s, gap threshold)."""
+    from odc_tpu_torch.ops.detect import make_infer_fn
+
+    infer = make_infer_fn(model, 0.9, 0.5, MAX_KEEP)
+    with torch.no_grad():  # launches no counted kernel before the zeroing
+        conf0 = model.decode(model(requests[0])).conf
+    n0 = requests[0].shape[0]
+    gap_thre = _gap_threshold(conf0, 8 * n0, 48 * n0)
+    calls = ([(requests[0], 0.9), (requests[0], gap_thre)]
+             + [(requests[1], 0.9)] * (3 + TIMED_CALLS))
+    once = {name: int(name == "nms_suppress") for name in counters}
+    once["int8_matmul"] = gemms
+    mm = counters["int8_matmul"]
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    mm.launches_by_route = dict.fromkeys(mm.launches_by_route, 0)
+    torch.cuda.reset_peak_memory_stats()
+    outs, call_ms = [], []
+    for i, (images, conf_thre) in enumerate(calls):
+        before = {k: w.launches for k, w in counters.items()}
+        t = time.perf_counter()
+        out = infer(images, conf_thre=conf_thre)
+        sync()
+        if i >= len(calls) - TIMED_CALLS:
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        step = {k: w.launches - before[k] for k, w in counters.items()}
+        if step != once:
+            raise AssertionError(f"v3 {label} call {i}: launches {step}, "
+                                 f"want {once}")
+        if i < 3:
+            outs.append((images, conf_thre, out))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: w.launches for k, w in counters.items()}
+    if mm.launches_by_route != {"wgmma": gemms * len(calls), "mma_sync": 0}:
+        raise AssertionError(f"v3 {label}: GEMM routes "
+                             f"{mm.launches_by_route}")
+    print(f"YOLOv3 {label} path: {len(calls)} calls, launches {launches}, "
+          f"GEMM launches by route {mm.launches_by_route}")
+    for images, conf_thre, (boxes, conf, cls, keep) in outs:
+        b = images.shape[0]
+        if not (boxes.shape == (b, MAX_KEEP, 4) and conf.shape == (b, MAX_KEEP)
+                and cls.shape == (b, MAX_KEEP, model.num_cls)
+                and keep.shape == (b, MAX_KEEP)):
+            raise AssertionError(f"v3 {label}: unexpected output shapes")
+        if not all(bool(torch.isfinite(t).all()) for t in (boxes, conf, cls)):
+            raise AssertionError(f"v3 {label}: non-finite outputs")
+        if bool((conf[keep] < conf_thre).any()):
+            raise AssertionError(f"v3 {label}: a kept box is below the "
+                                 "conf threshold")
+        print(f"v3 {label} batch {b} at conf {conf_thre:.6f}: kept per image "
+              f"{keep.sum(1).tolist()[:16]}{' ...' if b > 16 else ''}")
+    if not bool(outs[1][2][3].any()):
+        raise AssertionError(f"v3 {label}: the gap threshold kept no box")
+    med = statistics.median(call_ms)
+    q = statistics.quantiles(call_ms, n=4)
+    img_s = V3_BATCH / med * 1e3
+    print(f"YOLOv3-{V3_HW[0]} {label} e2e, batch {V3_BATCH}, images on the "
+          f"card: median {med:.3f} ms/call (quartiles {q[0]:.3f} / "
+          f"{q[2]:.3f}, n={len(call_ms)}) -> {img_s:.1f} img/s; peak device "
+          f"memory {peak_gb:.2f} GB")
+    _layer_breakdown(infer, requests[1], [
+        (model.backbone, "post", "backbone"), (model, "post", "fpn+heads")],
+        iters=3)
+    _profile(lambda: infer(requests[1]), calls=2, also=("matmul_kernel",))
+    return launches, infer, gap_thre, img_s
+
+
+def _v3_nms_check(label, model, infer, images, gap_thre):
+    """The NMS kernel against its plain version on the candidates of a
+    batch-256 ``infer`` call (its heads, from a forward hook), at conf 0.9
+    and at the gap conf; then timed at that shape."""
+    from odc_tpu_torch.core.nms import sorted_candidates
+    from odc_tpu_torch.ops.cuda.nms_kernel import suppress, suppress_plain
+
+    seen = {}
+    hook = model.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("y", out))
+    try:
+        infer(images)
+    finally:
+        hook.remove()
+    det = model.decode(seen.pop("y"))
+    b = images.shape[0]
+    boxes, conf = det.boxes.reshape(b, -1, 4), det.conf.reshape(b, -1)
+    if conf.shape[1] != 10647:
+        raise AssertionError(f"v3: {conf.shape[1]} candidates an image")
+    for thr in (0.9, gap_thre):
+        _, cand, surv = sorted_candidates(boxes, conf, conf >= thr, MAX_KEEP)
+        keep = suppress(cand, surv, 0.5)
+        if not torch.equal(keep, suppress_plain(cand, surv, 0.5)):
+            raise AssertionError(f"v3 {label}: NMS kernel != plain at conf "
+                                 f"{thr}")
+        print(f"v3 {label} candidates [{b}, 10647] -> [{b}, {MAX_KEEP}], conf "
+              f"{thr:.6f}: {int(surv.sum())} survivors, {int(keep.sum())} "
+              f"kept (kernel == plain)")
+    ms = graph_ms(lambda: suppress(cand, surv, 0.5), 100)
+    plain_ms = graph_ms(lambda: suppress_plain(cand, surv, 0.5), 5)
+    print(f"nms B={b} K={MAX_KEEP} on v3 candidates, device time per call "
+          f"in a CUDA graph: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+
+def _v3_gemm_check(infer, images):
+    """Every GEMM of one ``int8_dynamic`` call at batch 256, recorded as it
+    runs: on the wgmma route, bitwise equal to the plain version and to
+    ``torch._int_mm``, timed (CUDA graphs) against its bound."""
+    from odc_tpu_torch.ops.cuda.matmul_kernel import matmul_plain, route
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+               ops_ms=0.0, bound_ms=0.0)
+    shapes = []
+
+    def check(real, a, b):
+        m, k = a.shape
+        n = b.shape[1]
+        got = real(a, b)
+        if route(m, n, k, a.dtype, a, b) != "wgmma":
+            raise AssertionError(f"v3 GEMM {len(shapes)}: not on wgmma")
+        if not (torch.equal(got, matmul_plain(a, b))
+                and torch.equal(torch._int_mm(a, b), got)):
+            raise AssertionError(f"v3 GEMM {len(shapes)} M={m} K={k} N={n}: "
+                                 "kernel, plain and _int_mm disagree")
+        ms = graph_ms(lambda: real(a, b), 3)
+        lib_ms = graph_ms(lambda: torch._int_mm(a, b), 3)
+        plain_ms = time_ms(lambda: matmul_plain(a, b), 1, warmup=0)
+        nbytes, ops = _mm_bound(m, k, n, 1, 4)
+        bms, _ = bound_ms(nbytes, ops, INT8_OPS)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bms),
+                       ("bytes_ms", nbytes / HBM_BPS * 1e3),
+                       ("ops_ms", ops / INT8_OPS * 1e3)):
+            tot[key] += v
+        shapes.append((m, k, n, ms, lib_ms, bms))
+        return got
+
+    with _swap_matmul(check):
+        infer(images)
+    if len(shapes) != V3_INT8_LAYERS:
+        raise AssertionError(f"v3: {len(shapes)} GEMMs in an int8 call")
+    by_shape = {}
+    for m, k, n, ms, lib_ms, bms in shapes:
+        row = by_shape.setdefault((m, k, n), [0, 0.0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += ms
+        row[2] += lib_ms
+        row[3] += bms
+    for (m, k, n), (count, ms, lib_ms, bms) in sorted(by_shape.items()):
+        print(f"  v3 GEMM M={m} K={k} N={n} x{count}: wgmma {ms:.4f} ms "
+              f"({2.0 * m * k * n * count / ms / 1e9:.1f} TOPS), _int_mm "
+              f"{lib_ms:.4f}, bound {bms:.4f}")
+    print(f"v3 int8 GEMMs of one batch-{V3_BATCH} call (32, all wgmma, "
+          f"bitwise equal to plain and _int_mm): kernel {tot['ms']:.3f} ms, "
+          f"plain {tot['plain_ms']:.3f}, _int_mm {tot['library_ms']:.3f}, "
+          f"bound {tot['bound_ms']:.4f} ms (operations {tot['ops_ms']:.4f}, "
+          f"bytes {tot['bytes_ms']:.4f}; kernel at "
+          f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
+    return tot
+
+
+def phase_yolov3(counters):
+    """The YOLOv3 path (serving and evaluation): YOLOv3-416 bf16 through
+    ``make_infer_fn`` (Darknet-53 -> FPN -> three heads -> decode_v3 ->
+    NMS), and the same model with ``int8_dynamic`` (32 int8 GEMMs a call);
+    ``Detector.detect`` on two JPEGs and ``evaluate_batched`` on 64, both
+    precisions.  ``counters`` are the wrappers whose launch counts are
+    zeroed just before each serving run and read just after.  Returns the
+    launches by kernel of both runs and their batch-256 img/s."""
+    from odc_tpu_torch.eval import Detector, evaluate_batched
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.ops.cuda.nms_kernel import suppress
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 30)
+    requests = [
+        torch.randint(0, 256, (b, *V3_HW, 3), generator=gen, dtype=torch.uint8)
+        .to(DEVICE)
+        for b in (8, V3_BATCH)
+    ]
+    model = get_model("YOLOv3", dtype=torch.bfloat16, device=DEVICE,
+                      seed=SEED, image_size=V3_HW).eval()
+    _calibrate_bn(model, requests[0], torch.Generator().manual_seed(SEED + 31))
+    model8 = get_model("YOLOv3", dtype=torch.bfloat16, device=DEVICE,
+                       seed=SEED, image_size=V3_HW, int8_dynamic=True).eval()
+    model8.load_state_dict(model.state_dict())
+    if len(_int8_blocks(model8)) != V3_INT8_LAYERS:
+        raise AssertionError("v3: not 32 int8 layers")
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"YOLOv3-{V3_HW[0]} built ({n_params} parameters), BN calibrated "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    launches, infer, gap_thre, img_s = _serve_v3(
+        "bf16", model, requests, counters, 0)
+    _v3_nms_check("bf16", model, infer, requests[1], gap_thre)
+    del infer
+    launches8, infer8, gap8, img_s8 = _serve_v3(
+        "int8_dynamic", model8, requests, counters, V3_INT8_LAYERS)
+    _v3_nms_check("int8_dynamic", model8, infer8, requests[1], gap8)
+    gemm = _v3_gemm_check(infer8, requests[1])
+
+    # Each int8 layer of a served call (forward hooks, 16 images) against
+    # the f32 model's same layer on the same served input.  The bound: a
+    # per-tensor int8 code rounds its input within half a step, amax / 127,
+    # so by (amax / rms) / (127 sqrt 12) = 0.0023 (amax / rms) relative rms;
+    # the per-channel weight codes add (sqrt 3) / (127 sqrt 12) = 0.004 for
+    # uniformly drawn weights; BN scales the result by the channel's
+    # |mean| / spread, and the bf16 output adds 2^-9.  2^-4 holds an
+    # amax / rms up to 16 at a BN gain of 1.7.  The same check on the CPU
+    # (tests/test_torch_yolov3.py::test_int8_layers_within_the_card_bound,
+    # f32 at 64x64) measures 0.013-0.020, and 0.19-0.33 for the control,
+    # the same check with 4-bit codes (step amax / 7): it must fail the
+    # bound at every layer here too.
+    model32 = get_model("YOLOv3", dtype=torch.float32, device=DEVICE,
+                        seed=SEED, image_size=V3_HW)
+    model32.load_state_dict(model.state_dict())
+    model32.eval()
+    images = requests[1][:16]
+    seen = _v3_served(infer8, model8, images)
+    errs = _v3_layer_errors(model32, seen)
+    with torch.no_grad():
+        y32 = model32(images)
+    y8 = seen[""][1]
+    head_err = [float((a - b).norm() / b.norm()) for a, b in zip(y8, y32)]
+    ratio = max(float(x.float().abs().max() / x.float().pow(2).mean().sqrt())
+                for n, (x, _) in seen.items() if n)
+    del seen
+    with _four_bit_codes():
+        c_errs = _v3_layer_errors(model32, _v3_served(infer8, model8, images))
+    del model32, y32, y8
+    worst = max(errs, key=errs.get)
+    c_best = min(c_errs, key=c_errs.get)
+    print(f"v3 served int8 layers vs f32 on the served inputs (relative l2, "
+          f"16 images): {len(errs)} layers, worst {errs[worst]:.5f} at "
+          f"{worst}, median {statistics.median(errs.values()):.5f} (bound "
+          f"{V3_INT8_BOUND:.5f}; largest input amax / rms {ratio:.2f}); "
+          f"control, 4-bit codes: smallest {c_errs[c_best]:.5f} at {c_best}; "
+          f"whole int8 heads vs f32 model (y32, y16, y8) "
+          f"{[round(e, 5) for e in head_err]}")
+    if len(errs) != V3_INT8_LAYERS or errs[worst] > V3_INT8_BOUND:
+        raise AssertionError("v3: a served int8 layer left its bound")
+    if c_errs[c_best] <= V3_INT8_BOUND:
+        raise AssertionError("v3: the 4-bit control passed the layer check "
+                             "at some layer")
+
+    with tempfile.TemporaryDirectory() as root:
+        dataset = _voc_val(EVAL_SIZES, root)
+        for label, m in (("bf16", model), ("int8_dynamic", model8)):
+            det = Detector(m, conf_thre=0.05)
+            for index in (0, EVAL_SIZES[0][2]):
+                _, img, _ = dataset[index]
+                h, w = img.shape[:2]
+                before = suppress.launches
+                pred = det.detect(img)
+                boxes = np.asarray(pred["bbox_list"]).reshape(-1, 4)
+                if suppress.launches != before + 1:
+                    raise AssertionError("v3 detect: not one NMS launch")
+                if not (np.isfinite(boxes).all() and (boxes >= 0).all()
+                        and (boxes[:, 0::2] <= w).all()
+                        and (boxes[:, 1::2] <= h).all()
+                        and len(pred["lbl_list"]) == len(boxes)):
+                    raise AssertionError(f"v3 detect at {h}x{w}: boxes "
+                                         "outside the image or malformed")
+                print(f"Detector(YOLOv3 {label}).detect {h}x{w}: "
+                      f"{len(boxes)} boxes in the image frame")
+            for run in range(2):  # the first run meets new shapes
+                before = suppress.launches
+                t = time.perf_counter()
+                result = evaluate_batched(det, dataset, image_hw=V3_HW,
+                                          batch_size=64)
+                wall = time.perf_counter() - t
+                m50, m5095 = _map_scores(result, det.cls_list)
+                print(f"eval evaluate_batched YOLOv3 {label} {V3_HW[0]}x"
+                      f"{V3_HW[1]} b64 run {run + 1}: {len(dataset)} images, "
+                      f"{len(dataset) / wall:.1f} img/s (host JPEG decode "
+                      f"and resize included); mAP@.5 {m50:.4f}, mAP[.5:.95] "
+                      f"{m5095:.4f}; NMS launches {suppress.launches - before}")
+                if suppress.launches == before:
+                    raise AssertionError("v3 evaluate_batched: no NMS launch")
+    print(f"phase yolov3 (serving, checks, eval) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches, launches8, img_s, img_s8, gemm
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2110,18 +2507,28 @@ def main() -> int:
     v1_launches, v1_img_s = phase_yolov1(every)
     torch.cuda.empty_cache()
     v1_train_launches, v1_train_img_s = phase_train(every, "YOLOv1", V1_HW)
+    torch.cuda.empty_cache()
+    v3_launches, v3_launches8, v3_img_s, v3_img_s8, v3_gemm = phase_yolov3(
+        every)
+    torch.cuda.empty_cache()
+    phase_int8_map("YOLOv3")
+    v3_train_launches, v3_train_img_s = phase_train(every, "YOLOv3", V3_HW)
     print(f"launches by path: YOLOv2 serving {launches}, YOLOv2 training "
           f"{train_launches}, YOLOv1 serving {v1_launches}, YOLOv1 training "
-          f"{v1_train_launches}")
+          f"{v1_train_launches}, YOLOv3 serving bf16 {v3_launches}, "
+          f"int8_dynamic {v3_launches8}, YOLOv3 training {v3_train_launches}")
     # Each kernel's launches are those of the main paths that run it (the
-    # NMS: YOLOv2 and YOLOv1 serving; the warp: both training paths); the
-    # GEMM's times are sums over the 20 GEMMs of one int8 call.
+    # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths; the warp: the
+    # three training paths; the GEMM: the YOLOv2 int8 engine and YOLOv3
+    # int8_dynamic); the GEMM's times are sums over the 20 GEMMs of one
+    # YOLOv2 int8 call (the 32 of a YOLOv3 call are printed above).
     kernels = [
         dict(name="nms_suppress", route="cuda",
              source="odc_tpu_torch/csrc/nms_suppress.cu",
              replaces="odc_tpu/ops/pallas/nms_kernel.py:100",
-             launches=launches["nms_suppress"] + v1_launches["nms_suppress"],
-             **nms),
+             launches=(launches["nms_suppress"] + v1_launches["nms_suppress"]
+                       + v3_launches["nms_suppress"]
+                       + v3_launches8["nms_suppress"]), **nms),
         dict(name="superstem", route="cuda",
              source="odc_tpu_torch/csrc/superstem.cu",
              replaces="odc_tpu/ops/pallas/superstem_kernel.py:270",
@@ -2130,16 +2537,25 @@ def main() -> int:
              source="odc_tpu_torch/csrc/warp_affine.cu",
              replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
              launches=(train_launches["warp_affine"]
-                       + v1_train_launches["warp_affine"]), **warp),
+                       + v1_train_launches["warp_affine"]
+                       + v3_train_launches["warp_affine"]), **warp),
         dict(name="int8_matmul", route="cuda",
              source="odc_tpu_torch/csrc/int8_matmul.cu",
              replaces="scripts/probe_int8_mxu.py:76",
-             launches=int8_launches["int8_matmul"], **mm),
+             **{**mm, "launches_by_route": {
+                 "wgmma": (mm["launches_by_route"]["wgmma"]
+                           + v3_launches8["int8_matmul"]),
+                 "mma_sync": mm["launches_by_route"]["mma_sync"]}},
+             launches=(int8_launches["int8_matmul"]
+                       + v3_launches8["int8_matmul"])),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
           f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "
           f"native (bucket calls, img/s) {native}; YOLOv1 e2e "
-          f"{v1_img_s:.1f} img/s, train {v1_train_img_s:.1f} img/s")
+          f"{v1_img_s:.1f} img/s, train {v1_train_img_s:.1f} img/s; YOLOv3 "
+          f"e2e bf16 {v3_img_s:.1f} img/s, int8_dynamic {v3_img_s8:.1f} "
+          f"img/s (its 32 GEMMs {v3_gemm['ms']:.3f} ms a call, _int_mm "
+          f"{v3_gemm['library_ms']:.3f}), train {v3_train_img_s:.1f} img/s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

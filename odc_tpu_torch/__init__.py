@@ -17,7 +17,9 @@ augmentation (``train/``, ``python -m odc_tpu_torch.train``), with the data
 path, the loss and the checkpoints it needs; native-size evaluation and VOC
 mAP (``ops/detect.py::make_native_infer_fn``, ``eval/``, ``core/ap.py``)
 and the trainer's mAP hook; YOLOv1 (GoogLeNet, ``models/yolov1.py``) for
-inference, evaluation and training.
+inference, evaluation and training; YOLOv3 (Darknet-53 and the FPN,
+``models/yolov3.py``) for inference in bf16 and with ``int8_dynamic``,
+evaluation and training (``losses/yolov3_loss.py``).
 
 Entry points (model constructors, the training command line) default to
 ``device="cuda"`` and raise when no card is present; the CPU runs only when

@@ -1,14 +1,17 @@
 """Inference and VOC mAP evaluation.
 
 Port of ``odc_tpu/eval/evaluator.py``.  ``Detector.detect`` is the
-single-image contract: YOLOv2 runs at the image's native size, YOLOv1 at
-its network size (resized in, boxes clipped to the network frame and scaled
-back), and both return the ``annot_pred`` dict (bbox/lbl/conf/cls-spec-conf
-lists).
+single-image contract: YOLOv2 runs at the image's native size, YOLOv1 and
+YOLOv3 at their network size (resized in, boxes clipped to the network
+frame and scaled back: a YOLOv3's top-down merges need the taps of a
+32-multiple size), and all return the ``annot_pred`` dict
+(bbox/lbl/conf/cls-spec-conf lists).  A YOLOv3 built with
+``int8_dynamic`` evaluates in int8.
 
 ``evaluate_model`` is the per-image evaluation loop.  ``evaluate_batched``
 streams fixed-size batches through one inference function, boxes rescaled
-per image (a YOLOv1 only at its network size); ``evaluate_batched_native``
+per image (a YOLOv1 only at its network size; a YOLOv3 at any 32-multiple
+size); ``evaluate_batched_native``
 (YOLOv2) pads (never resizes) each image to a
 32-multiple bucket and runs the masked native-size forward per bucket, so
 every image is scored at its native size.  All three share the AP math of
@@ -46,7 +49,7 @@ def _numpy(out) -> tuple:
 
 
 class Detector:
-    """A YOLOv1 or YOLOv2 bound into inference functions
+    """A YOLOv1, YOLOv2 or YOLOv3 bound into inference functions
     (``ops/detect.py``).
 
     For a YOLOv2 the functions fold the fused stem's weights when they are
@@ -76,12 +79,6 @@ class Detector:
             raise ValueError(
                 "int8_neck/int8_scales are YOLOv2-only (the engine "
                 "hardcodes the Darknet-19/quadrant graph)"
-            )
-        if self.mode == "v3":
-            raise NotImplementedError(
-                f"{type(model).__name__} is not ported yet: its resize "
-                f"detect contract comes with the {type(model).__name__} "
-                "slice of the port"
             )
         self._make_kwargs = dict(
             class_wise=class_wise,
@@ -140,11 +137,12 @@ class Detector:
         YOLOv2 runs at the image's NATIVE size: the pooling chain floors
         odd sizes and the quadrant neck drops an odd trailing row/col;
         boxes come back in native pixels, neither clipped nor resized.
-        YOLOv1 runs at ``model.image_size``: the image is resized in, the
-        boxes are clipped to the network frame and scaled back by
+        YOLOv1 and YOLOv3 run at ``model.image_size``: the image is resized
+        in, the boxes are clipped to the network frame and scaled back by
         ``orig / net``."""
         orig_h, orig_w = img.shape[:2]
-        if self.mode == "v1":
+        resized = self.mode in ("v1", "v3")
+        if resized:
             net_h, net_w = self.model.image_size
             x = _resize_host(img, (net_h, net_w))
         elif orig_h < 64 or orig_w < 64:
@@ -160,7 +158,7 @@ class Detector:
         )
         boxes, conf, cls_scores = (
             boxes[0][keep[0]], conf[0][keep[0]], cls_scores[0][keep[0]])
-        if self.mode == "v1":
+        if resized:
             boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0.0, net_w - 1.0)
             boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0.0, net_h - 1.0)
             boxes = boxes * np.array([orig_w / net_w, orig_h / net_h,

@@ -3,6 +3,7 @@ from odc_tpu_torch.models.registry import (
 )
 from odc_tpu_torch.models.yolov1 import YOLOv1
 from odc_tpu_torch.models.yolov2 import YOLOv2
+from odc_tpu_torch.models.yolov3 import YOLOv3
 
-__all__ = ["MODEL_REGISTRY", "YOLOv1", "YOLOv2", "get_model",
+__all__ = ["MODEL_REGISTRY", "YOLOv1", "YOLOv2", "YOLOv3", "get_model",
            "model_from_config"]

@@ -1,4 +1,5 @@
 from odc_tpu_torch.models.backbones.darknet19 import Darknet19Backbone
+from odc_tpu_torch.models.backbones.darknet53 import Darknet53Backbone
 from odc_tpu_torch.models.backbones.googlenet import GoogLeNetBackbone
 
-__all__ = ["Darknet19Backbone", "GoogLeNetBackbone"]
+__all__ = ["Darknet19Backbone", "Darknet53Backbone", "GoogLeNetBackbone"]

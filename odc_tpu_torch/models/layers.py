@@ -83,12 +83,32 @@ def _conv_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:
             conv.bias.uniform_(-bound, bound, generator=generator)
 
 
+def same_padding(n: int, k: int, stride: int):
+    """(low, high) padding of one spatial dim of size ``n`` under XLA's
+    ``"SAME"``: ``ceil(n / stride)`` outputs, total
+    ``max((ceil(n / stride) - 1) * stride + k - n, 0)``, the low side
+    ``total // 2`` and the high side the rest.  A 3x3 stride-2 conv on an
+    even size pads ``(0, 1)``, not one row on each side."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
 class ConvBnLeaky(nn.Module):
-    """Conv (SAME, stride 1) + BatchNorm + LeakyReLU(0.1), NHWC in and out.
+    """Conv + BatchNorm + LeakyReLU(0.1), NHWC in and out.
 
     The conv keeps its bias, like the JAX package and the reference.  The
     conv runs in ``dtype``; BN, leaky and the cast back to ``dtype`` follow
-    in float32."""
+    in float32.  ``padding`` is ``"SAME"`` (XLA's rule,
+    :func:`same_padding`, asymmetric at stride 2) or ``"VALID"``.
+
+    ``int8_dynamic`` (inference only, ignored in training mode): a 3x3
+    conv with at least 128 input channels runs as the JAX package's
+    dynamic int8 conv (``odc_tpu/models/layers.py::ConvBnLeaky``): the input
+    quantized per tensor over the whole batch, the weights per output
+    channel, the int32 sums from ``ops/quantize.py::conv_i8`` (the
+    hand-written GEMM on a CUDA tensor), ``acc * (sx * sw) + bias`` in
+    float32, then this block's own BN (running statistics), leaky and the
+    cast to ``dtype``.  The same parameters serve both precisions."""
 
     def __init__(
         self,
@@ -98,27 +118,74 @@ class ConvBnLeaky(nn.Module):
         negative_slope: float = 0.1,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        stride: int = 1,
+        padding: str = "SAME",
+        int8_dynamic: bool = False,
     ):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                             f"{padding!r}")
         self.dtype = dtype
         self.negative_slope = negative_slope
+        self.stride = stride
+        self.padding = padding
+        self.int8_dynamic = int8_dynamic
+        # Stride 1 SAME (odd kernels) is symmetric and stays in the conv;
+        # other SAME cases pad the NHWC map explicitly in forward.
+        symmetric = padding == "SAME" and stride == 1 and kernel % 2 == 1
+        self.pad_input = padding == "SAME" and not symmetric
         self.conv = nn.Conv2d(
-            in_features, features, kernel, padding=kernel // 2, bias=True
+            in_features, features, kernel, stride=stride,
+            padding=kernel // 2 if symmetric else 0, bias=True,
         )
         if generator is not None:
             _conv_init_(self.conv, generator)
         self.bn = TorchBatchNorm(features)
 
+    def pads(self, h: int, w: int):
+        """((top, bottom), (left, right)) padding of an ``h`` x ``w``
+        input."""
+        k = self.conv.kernel_size[0]
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        return (same_padding(h, k, self.stride),
+                same_padding(w, k, self.stride))
+
+    def _uses_int8(self, x: torch.Tensor) -> bool:
+        return (self.int8_dynamic and not self.training
+                and self.conv.kernel_size == (3, 3) and x.shape[-1] >= 128)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = F.conv2d(
-            x.to(dt).permute(0, 3, 1, 2),
-            self.conv.weight.to(dt),
-            self.conv.bias.to(dt),
-            padding=self.conv.padding,
-        ).permute(0, 2, 3, 1)
+        if self._uses_int8(x):
+            y = self._int8_conv(x)
+        else:
+            h = x.to(dt)
+            if self.pad_input:
+                (t, b), (l, r) = self.pads(*h.shape[1:3])
+                h = F.pad(h, (0, 0, l, r, t, b))
+            y = F.conv2d(
+                h.permute(0, 3, 1, 2),
+                self.conv.weight.to(dt),
+                self.conv.bias.to(dt),
+                stride=self.stride,
+                padding=self.conv.padding,
+            ).permute(0, 2, 3, 1)
         y = self.bn(y)
         return F.leaky_relu(y, self.negative_slope).to(dt)
+
+    @torch.no_grad()
+    def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
+        from odc_tpu_torch.ops.quantize import (
+            conv_i8, hwio, quantize_dynamic, quantize_weights_per_channel,
+        )
+
+        xq, sx = quantize_dynamic(x)
+        wq, sw = quantize_weights_per_channel(hwio(self.conv.weight))
+        acc = conv_i8(xq, wq, stride=self.stride,
+                      pads=self.pads(*x.shape[1:3]))
+        return acc.float() * (sx * sw) + self.conv.bias.float()
 
 
 def extent_mask(shape, eh: torch.Tensor, ew: torch.Tensor) -> torch.Tensor:

@@ -7,21 +7,17 @@ from typing import Any, Dict
 
 from odc_tpu_torch.models.yolov1 import YOLOv1
 from odc_tpu_torch.models.yolov2 import YOLOv2
+from odc_tpu_torch.models.yolov3 import YOLOv3
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "YOLOv1": YOLOv1,
     "YOLOv2": YOLOv2,
+    "YOLOv3": YOLOv3,
 }
-_NOT_PORTED = ("YOLOv3",)
 
 
 def model_class(name: str):
-    """``MODEL_REGISTRY[name]``; ``KeyError`` for an unknown name,
-    ``NotImplementedError`` for a model of a later slice."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: it comes with the {name} slice of "
-            "the port")
+    """``MODEL_REGISTRY[name]``; ``KeyError`` for an unknown name."""
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}"

@@ -1,11 +1,14 @@
-"""Box decode for the YOLOv1 and YOLOv2 heads.
+"""Box decode for the YOLOv1, YOLOv2 and YOLOv3 heads.
 
 Port of ``odc_tpu/ops/decode.py`` (``Detections``, ``YOLOV2_ANCHORS``,
-``decode_v1``, ``decode_v1_preactivated``, ``decode_v2``).  v2:
+``YOLOV3_ANCHORS``, ``decode_v1``, ``decode_v1_preactivated``,
+``decode_v2``, ``decode_v3``).  v2:
 ``bx = sigmoid(tx) + cx``, ``bw = p_w * exp(tw)`` with the anchors in grid
 units, ``conf = sigmoid(t_o)``, ``cls_prob = softmax``, ``cls_spec = conf *
 cls_prob``.  v1: the reference's sigmoid sizes, ``bw = Wg * sigmoid(tw)``,
-and one softmax over the classes per cell.  Corners in pixels.
+and one softmax over the classes per cell.  v3: three heads with pixel
+anchors, ``bx = (sigmoid(tx) + cx) * stride``, independent class sigmoids,
+flattened to one box axis.  Corners in pixels.
 """
 
 from __future__ import annotations
@@ -23,9 +26,18 @@ YOLOV2_ANCHORS: Tuple[Tuple[float, float], ...] = (
     (11.2364, 10.0071),
 )
 
+# YOLOv3 anchors, (width, height) in PIXELS of the network input (darknet's
+# yolov3.cfg), smallest to largest; groups of 3 attach to the stride-8, 16
+# and 32 heads.
+YOLOV3_ANCHORS: Tuple[Tuple[float, float], ...] = (
+    (10.0, 13.0), (16.0, 30.0), (33.0, 23.0),        # stride 8
+    (30.0, 61.0), (62.0, 45.0), (59.0, 119.0),       # stride 16
+    (116.0, 90.0), (156.0, 198.0), (373.0, 326.0),   # stride 32
+)
+
 
 class Detections(NamedTuple):
-    """Decoded head output."""
+    """Decoded head output (v3: one flat box axis, ``[B, G, ...]``)."""
 
     sig_txty: torch.Tensor  # [B, Hg, Wg, A, 2]  sigmoid(tx), sigmoid(ty)
     twth: torch.Tensor      # [B, Hg, Wg, A, 2]  exp (v2) or sigmoid (v1)
@@ -128,3 +140,50 @@ def decode_v1_preactivated(
     cls_prob = y[..., -num_cls:]
     cls_spec = cls_prob[..., None, :] * conf[..., :, None]
     return Detections(sig_txty, sig_twth, boxes, conf, cls_prob, cls_spec)
+
+
+def decode_v3(
+    ys: Sequence[torch.Tensor],
+    image_hw: Tuple[int, int],
+    anchors: Sequence[Tuple[float, float]] = YOLOV3_ANCHORS,
+) -> Detections:
+    """Decode YOLOv3's heads ``ys`` = (y32, y16, y8), coarsest first, each
+    [B, Hg, Wg, 3, 5 + C], into one ``Detections`` with a flat
+    ``[B, sum Hg*Wg*3]`` box axis (head by head, then row-major cells, then
+    anchors).  ``anchors`` are 9 (w, h) pixel priors, smallest first: the
+    coarsest head takes the largest group.  ``bx = (sigmoid(tx) + cx) *
+    stride``, ``bw = a_w * exp(tw)``, ``conf = sigmoid(t_o)``, class
+    probabilities independent sigmoids (no softmax)."""
+    h, w = image_hw
+    num_scales = len(ys)
+    flat: list = [[] for _ in range(6)]
+    for s, y in enumerate(ys):
+        b, hg, wg, a, _ = y.shape
+        grp = torch.tensor(
+            anchors[3 * (num_scales - 1 - s) : 3 * (num_scales - s)],
+            dtype=y.dtype, device=y.device,
+        )  # [3, 2] pixels
+        stride_h = h / hg
+        stride_w = w / wg
+
+        sig_txty = torch.sigmoid(y[..., 0:2])
+        exp_twth = torch.exp(y[..., 2:4])
+        conf = torch.sigmoid(y[..., 4])
+        cls_prob = torch.sigmoid(y[..., 5:])
+
+        cy, cx = _grid_offsets(hg, wg, y.dtype, y.device)
+        bx = (sig_txty[..., 0] + cx) * stride_w
+        by = (sig_txty[..., 1] + cy) * stride_h
+        bw = grp[:, 0] * exp_twth[..., 0]
+        bh = grp[:, 1] * exp_twth[..., 1]
+        boxes = torch.stack(
+            [bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2], dim=-1
+        )
+        cls_spec = cls_prob * conf[..., None]
+
+        g = hg * wg * a
+        for i, t in enumerate(
+            (sig_txty, exp_twth, boxes, conf, cls_prob, cls_spec)
+        ):
+            flat[i].append(t.reshape((b, g) + t.shape[4:]))
+    return Detections(*(torch.cat(parts, dim=1) for parts in flat))

@@ -7,8 +7,12 @@ YOLOv2), stages 1-2 run as the fused superstem kernel
 once, when the function is built.  It
 computes the same function as the unfused stem within bf16 rounding.  A
 YOLOv1 runs its own forward (GoogLeNet, then the Dense head, whose f32
-weights are cast to the compute dtype at every call, as flax does).  The
-suppression is one NMS kernel launch for the whole batch.
+weights are cast to the compute dtype at every call, as flax does).  A
+YOLOv3 runs its own forward too (Darknet-53, the FPN, three heads, decoded
+into one flat box axis of 10647 candidates an image at 416x416); built with
+``int8_dynamic``, its 32 wide 3x3 convs run as int8 GEMMs of the
+hand-written kernel.  The suppression is one NMS kernel launch for the
+whole batch.
 
 The int8 arguments follow the JAX package: ``int8_scales`` runs the full
 int8 PTQ engine (``ops/int8_engine.py``) in place of the model forward and
@@ -59,8 +63,8 @@ def make_infer_fn(
     int8_stem: str = "s2d",
     compact: bool = False,
 ) -> Callable:
-    """Build ``infer(images, conf_thre=..., iou_thre=...)`` for a YOLOv1 or
-    a YOLOv2.
+    """Build ``infer(images, conf_thre=..., iou_thre=...)`` for a YOLOv1, a
+    YOLOv2 or a YOLOv3.
 
     ``images`` is [B, H, W, 3] uint8 (moved to the model's device).  Returns
     ``(boxes [B, max_keep, 4], conf [B, max_keep], cls_scores
@@ -75,7 +79,8 @@ def make_infer_fn(
     PTQ engine with the ``int8_stem`` formulation (``"s2d"``, ``"plain"``
     or ``"s2d2"``) instead of the model forward.  ``int8_neck``: the 3x3
     neck conv runs as the dynamic-PTQ int8 conv.  Both need a quadrant-neck
-    YOLOv2."""
+    YOLOv2 (a YOLOv3 has no neck: its int8 is the model's own
+    ``int8_dynamic``)."""
     if int8_scales is not None or int8_neck:
         # The int8 paths hardcode the Darknet-19/quadrant YOLOv2 graph; a
         # space_to_depth model would silently run the quadrant reorg and

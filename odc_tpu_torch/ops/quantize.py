@@ -49,19 +49,23 @@ def quantize_weights_per_channel(kernel: torch.Tensor):
     return q, scale
 
 
-def _im2col(x: torch.Tensor, k: int, stride: int, kp: int):
+def _im2col(x: torch.Tensor, k: int, stride: int, kp: int, pads=None):
     """NHWC ``x`` -> (``[B*Ho*Wo, kp]`` patches, Ho, Wo).  K is ordered
     (ky, kx, c) like an HWIO weight; the border is padded with code 0 (not
-    the zero point: the engine corrects the border itself), ``k // 2``
+    the zero point: the engine corrects the border itself), by ``pads``
+    ``((top, bottom), (left, right))`` when given, else ``k // 2``
     rows/cols a side at stride 1 and ``(k - 2) // 2`` at stride 2; zero
     columns fill ``k*k*C`` up to ``kp``."""
     b, h, w, c = x.shape
-    p = k // 2 if stride == 1 else (k - stride) // 2
-    ho = (h + 2 * p - k) // stride + 1
-    wo = (w + 2 * p - k) // stride + 1
-    if k == 1 and kp == c:
+    if pads is None:
+        p = k // 2 if stride == 1 else (k - stride) // 2
+        pads = ((p, p), (p, p))
+    (pt, pb), (pl, pr) = pads
+    ho = (h + pt + pb - k) // stride + 1
+    wo = (w + pl + pr - k) // stride + 1
+    if k == 1 and kp == c and stride == 1 and not any(pads[0] + pads[1]):
         return x.reshape(b * h * w, c), ho, wo
-    xp = F.pad(x, (0, 0, p, p, p, p))
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
     cols = [
         xp[:, dy : dy + stride * (ho - 1) + 1 : stride,
            dx : dx + stride * (wo - 1) + 1 : stride]
@@ -73,18 +77,26 @@ def _im2col(x: torch.Tensor, k: int, stride: int, kp: int):
     return torch.cat(cols, dim=-1).reshape(b * ho * wo, kp), ho, wo
 
 
-def conv_i8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv_i8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
+            pads=None) -> torch.Tensor:
     """int8 NHWC ``xq`` [B, H, W, I] (*) int8 HWIO ``wq`` [k, k, I, O] ->
     exact int32 NHWC accumulator, zero padding.
 
     Takes the convolutions of the int8 paths: SAME stride 1 with k = 1 or 3,
-    and the lifted 4x4/stride-2 conv with one row/col of padding on each
-    side (``int8_engine._s2d_stem_kernel``).  A 1x1 conv needs no im2col."""
+    the lifted 4x4/stride-2 conv with one row/col of padding on each side
+    (``int8_engine._s2d_stem_kernel``), and the 3x3/stride-2 conv with
+    explicit per-side ``pads`` ``((top, bottom), (left, right))`` (XLA's
+    SAME is ``(0, 1)`` on an even size, ``layers.same_padding``; ``VALID``
+    is zeros).  Code 0 is the padding value: exact for the symmetric
+    dynamic quantization, whose zero point is 0.  A 1x1 conv needs no
+    im2col."""
     k = wq.shape[0]
-    if (k, stride) not in ((1, 1), (3, 1), (4, 2)) or wq.shape[1] != k:
+    if (k, stride) not in ((1, 1), (3, 1), (4, 2), (3, 2)) or wq.shape[1] != k:
         raise ValueError(
-            f"conv_i8 takes 1x1 and 3x3 stride 1 or 4x4 stride 2, got "
-            f"{tuple(wq.shape[:2])} stride {stride}")
+            f"conv_i8 takes 1x1 and 3x3 stride 1, 4x4 stride 2 or 3x3 "
+            f"stride 2, got {tuple(wq.shape[:2])} stride {stride}")
+    if (k, stride) == (3, 2) and pads is None:
+        raise ValueError("a 3x3 stride-2 conv needs explicit pads")
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"need int8 codes, got {xq.dtype} and {wq.dtype}")
     if xq.dim() != 4 or xq.shape[-1] != wq.shape[2]:
@@ -97,7 +109,7 @@ def conv_i8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1) -> torch.Tensor
     bt = wq.permute(3, 0, 1, 2).reshape(cout, kk)  # [O, K], K-contiguous
     if kp > kk:
         bt = F.pad(bt, (0, kp - kk))
-    a, ho, wo = _im2col(xq.contiguous(), k, stride, kp)
+    a, ho, wo = _im2col(xq.contiguous(), k, stride, kp, pads)
     acc = matmul_kernel.matmul(a, bt.contiguous().t())
     return acc.reshape(xq.shape[0], ho, wo, cout)
 

@@ -10,7 +10,8 @@ and the pipelines, and runs the staged training schedule on ``--device``
         --batch-size 4 --image-size 64          # smoke run without a card
 
 ``--model`` defaults to YOLOv1, as the JAX package's ``train.py`` does;
-``--image-size`` sets a YOLOv1's grid to ``size // 32``.
+``--image-size`` sets a YOLOv1's grid to ``size // 32``; a YOLOv3's three
+heads follow the size (``size // 32``, ``// 16`` and ``// 8``).
 
 ``--eval-map-conf`` is the one confidence threshold of both mAP runs: the
 in-training hook (``--eval-map-every``) and the run after training
@@ -51,7 +52,7 @@ def parse_args(argv=None):
                    choices=["bfloat16", "float32"])
     p.add_argument("--image-size", type=int, default=None,
                    help="square input-size override, multiple of 32 "
-                   "(default: the model config's 224 v1 / 416 v2)")
+                   "(default: the model config's 224 v1 / 416 v2 and v3)")
     p.add_argument("--no-augment", action="store_true",
                    help="shorthand for --augment none")
     p.add_argument(
@@ -83,9 +84,6 @@ def parse_args(argv=None):
                    help=_LATER["model_parallel"])
     args = p.parse_args(argv)
 
-    if args.model == "YOLOv3":
-        p.error("--model YOLOv3 is not ported yet: it comes with the YOLOv3 "
-                "slice of the port (YOLOv1 and YOLOv2 for now)")
     aug_mode = "none" if args.no_augment else args.augment
     if aug_mode == "host":
         p.error("--augment host is not ported yet: host augmentation comes "

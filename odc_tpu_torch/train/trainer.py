@@ -17,15 +17,18 @@ Port of ``odc_tpu/train/trainer.py``:
 * the mAP-during-training hook (``eval_map_every``): streaming batched VOC
   mAP over the val dataset, a ``map_eval`` row in ``metrics.jsonl`` and a
   best-by-mAP checkpoint;
-* multi-scale policy for v2 ("reference": size picked only at epoch 1;
-  "every10": every 10 epochs).
+* multi-scale policy for v2 and v3 ("reference": size picked only at
+  epoch 1; "every10": every 10 epochs);
+* YOLOv3 (``mode="v3"``): the raw heads go to ``yolov3_loss``, which
+  assigns its targets itself from the boxes, with the model's pixel
+  anchors.
 
 Unlike the JAX package's functional ``TrainState``, the state here is
 updated IN PLACE: ``train_step`` mutates the model's parameters and BN
 buffers and the momentum buffers, and returns the same object.
 
 Validation runs batched at the pipeline's static size.  Not ported yet:
-YOLOv3's loss (``mode="v3"``) and the device mesh.
+the device mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ import torch
 from odc_tpu_torch.config import TrainConfig, as_dict
 from odc_tpu_torch.losses.yolo_loss import (
     Lambdas, yolo_loss, yolo_loss_per_image,
+)
+from odc_tpu_torch.losses.yolov3_loss import (
+    yolov3_loss, yolov3_loss_per_image,
 )
 from odc_tpu_torch.ops.assign import YoloTargets, assign
 from odc_tpu_torch.ops.augment import augment_batch
@@ -87,14 +93,22 @@ def _targets_of(batch) -> YoloTargets:
     )
 
 
-def _check_mode(mode: str) -> None:
+def _check_mode(mode: str, anchors=None) -> None:
+    if mode not in ("v1", "v2", "v3"):
+        raise ValueError(f"mode must be 'v1', 'v2' or 'v3', got {mode!r}")
+    if mode == "v3" and (anchors is None or len(anchors) != 9):
+        raise ValueError(
+            "mode='v3' needs the model's 9 (w, h) pixel anchors, got "
+            f"{None if anchors is None else len(anchors)}")
+
+
+def _loss(model, mode, y, image_hw, targets, lambdas, anchors):
+    """``(total, parts)`` of the raw head ``y`` of an ``image_hw`` batch."""
     if mode == "v3":
-        raise NotImplementedError(
-            "mode='v3' is not ported yet: the YOLOv3 loss comes with the "
-            "YOLOv3 slice of the port"
-        )
-    if mode not in ("v1", "v2"):
-        raise ValueError(f"mode must be 'v1' or 'v2', got {mode!r}")
+        return yolov3_loss(y, targets, image_hw, anchors=anchors,
+                           lambdas=lambdas)
+    det = model.decode(y, image_hw)
+    return yolo_loss(det, targets, lambdas, mode=mode, anchors=anchors)
 
 
 def sgd_update(
@@ -138,7 +152,7 @@ def make_train_step(
     ``on_phase`` (measurement only): called with "augment", "forward",
     "loss", "backward", "update" as each part of the step has been
     enqueued."""
-    _check_mode(mode)
+    _check_mode(mode, anchors)
     mark = on_phase or (lambda name: None)
 
     def train_step(state: TrainState, batch, lr: float, generator=None):
@@ -160,10 +174,8 @@ def make_train_step(
         model.zero_grad(set_to_none=True)
         y = model(image, generator=generator) if mode == "v1" else model(image)
         mark("forward")
-        det = model.decode(y, tuple(image.shape[1:3]))
-        loss, parts = yolo_loss(
-            det, targets, lambdas, mode=mode, anchors=anchors
-        )
+        loss, parts = _loss(model, mode, y, tuple(image.shape[1:3]), targets,
+                            lambdas, anchors)
         mark("loss")
         loss.backward()
         mark("backward")
@@ -196,7 +208,7 @@ def make_eval_step(
     the reference's batch-size-1 semantics (per-image denominators, see
     :func:`odc_tpu_torch.losses.yolo_loss.yolo_loss_per_image`);
     ``"batched"`` returns the batch-global masked-mean loss (one scalar)."""
-    _check_mode(mode)
+    _check_mode(mode, anchors)
     if val_loss_mode not in ("per_image", "batched"):
         raise ValueError(f"unknown val_loss_mode {val_loss_mode!r}")
 
@@ -205,14 +217,18 @@ def make_eval_step(
         model = state.model
         model.eval()
         y = model(batch.image)
-        det = model.decode(y, tuple(batch.image.shape[1:3]))
+        image_hw = tuple(batch.image.shape[1:3])
         targets = _targets_of(batch)
         if val_loss_mode == "per_image":
-            losses, has_box = yolo_loss_per_image(
-                det, targets, lambdas, mode=mode, anchors=anchors
-            )
+            if mode == "v3":
+                losses, has_box = yolov3_loss_per_image(
+                    y, targets, image_hw, anchors=anchors, lambdas=lambdas)
+            else:
+                losses, has_box = yolo_loss_per_image(
+                    model.decode(y, image_hw), targets, lambdas, mode=mode,
+                    anchors=anchors)
             return losses.sum(), has_box.float().sum()
-        total, _ = yolo_loss(det, targets, lambdas, mode=mode, anchors=anchors)
+        total, _ = _loss(model, mode, y, image_hw, targets, lambdas, anchors)
         return total
 
     return eval_step
@@ -248,7 +264,8 @@ class Trainer:
         self.ckpt_path = ckpt_path
         self.mode = mode or model.mode
         self.anchors = (
-            getattr(model, "anchors", None) if self.mode == "v2" else None
+            getattr(model, "anchors", None)
+            if self.mode in ("v2", "v3") else None
         )
         self.lambdas = Lambdas(
             config.lambda_xy, config.lambda_wh, config.lambda_conf,
@@ -372,7 +389,8 @@ class Trainer:
     # -- full run ------------------------------------------------------------
 
     def _maybe_multiscale(self, epoch: int) -> None:
-        if self.mode != "v2" or not self.config.multiscale_sizes:
+        # v2 as the reference; v3 trains multi-scale in darknet too.
+        if self.mode not in ("v2", "v3") or not self.config.multiscale_sizes:
             return
         policy = self.config.multiscale_policy
         repick = (

@@ -258,11 +258,11 @@ def test_evaluate_batched_native_refusals(scene):
 
 
 def test_detector_refuses_models_not_ported():
-    """A YOLOv3 detector waits for its slice; an int8 setting on a model
-    other than YOLOv2 is refused first, as in JAX."""
+    """The YOLOv2 int8 paths are refused on the other models, as in JAX:
+    a YOLOv3's int8 is its own ``int8_dynamic``, a YOLOv1 has none."""
     yolov3 = type("YOLOv3", (), {"mode": "v3"})()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Detector(yolov3)
+    with pytest.raises(ValueError, match="YOLOv2-only"):
+        Detector(yolov3, int8_scales=np.ones((22, 2)))
     yolov1 = type("YOLOv1", (), {"mode": "v1"})()
     with pytest.raises(ValueError, match="YOLOv2-only"):
         Detector(yolov1, int8_neck=True)

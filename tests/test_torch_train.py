@@ -555,7 +555,7 @@ def test_multiscale_policies(voc, tmp_path, policy, epochs, repicks):
 @pytest.mark.parametrize(
     "kwargs, error, match",
     [(dict(train_drop_remainder=False), ValueError, "drop_remainder"),
-     (dict(mode="v3"), NotImplementedError, "not ported yet"),
+     (dict(mode="v3"), ValueError, "9 \\(w, h\\) pixel anchors"),
      (dict(mode="v9"), ValueError, "mode")],
 )
 def test_trainer_rejections(voc, tmp_path, kwargs, error, match):
@@ -615,7 +615,6 @@ def test_trainer_map_hook(voc, tmp_path, monkeypatch):
      (["--qat", "x.ckpt"], "QAT slice"),
      (["--data-parallel", "2"], "data-parallel slice"),
      (["--model-parallel", "2"], "data-parallel slice"),
-     (["--model", "YOLOv3"], "YOLOv3 slice"),
      (["--image-size", "100"], "multiple of 32")],
 )
 def test_cli_names_the_later_slice(argv, message, capsys):
@@ -625,7 +624,7 @@ def test_cli_names_the_later_slice(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("model", ["YOLOv1", "YOLOv2"])
+@pytest.mark.parametrize("model", ["YOLOv1", "YOLOv2", "YOLOv3"])
 def test_cli_parses_the_ported_models(model):
     args = cli.parse_args(["--model", model, "--image-size", "64"])
     assert (args.model, args.image_size) == (model, 64)

@@ -240,14 +240,13 @@ def test_registry():
     assert MODEL_REGISTRY["YOLOv2"].__name__ == "YOLOv2"
     with pytest.raises(KeyError, match="unknown model"):
         get_model("YOLOv9")
-    with pytest.raises(NotImplementedError, match="YOLOv3 slice"):
-        get_model("YOLOv3")
+    assert MODEL_REGISTRY["YOLOv3"].__name__ == "YOLOv3"
 
 
 def test_model_from_config():
     """A ``ModelConfig`` builds each model from the fields its class takes
-    (the v1 grid and anchors; the v2 size only), and the model carries its
-    mode."""
+    (the v1 grid and anchors; the v2 and v3 size only), and the model
+    carries its mode."""
     cfg = dataclasses.replace(MODEL_CONFIG["YOLOv1"], image_size=(64, 64),
                               num_grid_cell_in_height=2,
                               num_grid_cell_in_width=2)
@@ -257,8 +256,8 @@ def test_model_from_config():
     v2 = model_from_config(MODEL_CONFIG["YOLOv2"], device="meta")
     assert isinstance(v2, YOLOv2) and v2.mode == "v2"
     assert v2.num_anchor_box == 5  # the config's v1 anchor count not taken
-    with pytest.raises(NotImplementedError, match="YOLOv3 slice"):
-        model_from_config(MODEL_CONFIG["YOLOv3"], device="meta")
+    v3 = model_from_config(MODEL_CONFIG["YOLOv3"], device="meta")
+    assert v3.mode == "v3" and v3.image_size == (416, 416)
 
 
 # -- dropout -------------------------------------------------------------
