@@ -56,7 +56,18 @@ just before and read just after:
   ``Detector.detect`` on two JPEGs and ``evaluate_batched`` on 64 in both
   precisions; the int8 mAP@.5 of a YOLOv3 overfit at 96x96 (bf16 above
   0.3, ``int8_dynamic`` at most 0.15 below it); then YOLOv3-416 training
-  at batch 32 as above.
+  at batch 32 as above;
+* QAT — YOLOv2-416 fine-tuned against the int8 engine at batch 32
+  (``train/qat.py::finetune_qat``, exact mode, device augmentation) after
+  calibrating on one un-augmented batch: the fake-quant twin against the
+  engine by the JAX QAT test's criteria for both stems (distances with
+  TF32 off and on), exact mode ``torch.equal`` to the engine, 20 GEMM
+  launches (all wgmma) and 1 warp a step and 20 GEMMs a validation batch,
+  one step's GEMMs bitwise equal to plain and its warp within 1e-3, frozen
+  BN, the shipped ``int8_scales.npy``, restored checkpoints serving through
+  ``make_infer_fn(int8_scales=...)``; step time and parts; then a short
+  QAT of the overfit 96x96 YOLOv2 lowers the engine's loss with its int8
+  mAP@.5 within 0.15.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with each kernel's launches, error and times, and as its last line
@@ -623,13 +634,14 @@ def _profile(fn, calls: int = 3, also=()):
     busy = sum(r[0] for r in rows) * calls
     if not rows:
         print("profiler: no device time recorded")
-        return
+        return None
     print(f"profiler, {calls} calls: device busy {busy:.3f} of {wall_ms:.3f} "
           f"ms wall ({100 * busy / wall_ms:.1f}%); top kernels, ms per call:")
     ranked = sorted(rows, reverse=True)
     for i, (ms, key, n) in enumerate(ranked):
         if i < 12 or any(name in key for name in also):
             print(f"  {ms:8.3f}  x{n:<4d} {key[:90]}")
+    return 100 * busy / wall_ms
 
 
 def _mm_bound(m: int, k: int, n: int, elem: int, out: int):
@@ -1759,7 +1771,7 @@ def _map50(result, cls_list):
     return float(np.mean(aps)) if aps else 0.0
 
 
-def phase_int8_map(model_name: str = "YOLOv2"):
+def phase_int8_map(model_name: str = "YOLOv2", root=None):
     """int8 accuracy on a TRAINED model (the counterpart of the JAX
     package's test of it): overfit a full-width f32 ``model_name`` (YOLOv2
     or YOLOv3) at 96x96 on 8 synthetic images (80 steps, momentum 0.9, no
@@ -1768,7 +1780,13 @@ def phase_int8_map(model_name: str = "YOLOv2"):
     max_keep 16) in f32, bf16 and int8: for YOLOv2 the PTQ engine
     calibrated on the images, for YOLOv3 the bf16 model with
     ``int8_dynamic``.  bf16 must exceed 0.3 and int8 lose at most 0.15 of
-    it."""
+    it.  The synthetic VOC goes to ``root`` (a temporary folder if None);
+    returns the trained f32 model, its batch, dataset, loss weights, int8
+    keyword arguments and scores, for the QAT phase (``root`` must then
+    outlive the call: the dataset reads its JPEGs from it)."""
+    if root is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return phase_int8_map(model_name, tmp)
     from odc_tpu_torch.config import TRAIN_CONFIG
     from odc_tpu_torch.data.pipeline import DetectionPipeline
     from odc_tpu_torch.data.prefetch import device_prefetch
@@ -1788,39 +1806,38 @@ def phase_int8_map(model_name: str = "YOLOv2"):
         return get_model(model_name, image_size=MAP_HW, dtype=dtype,
                          device=DEVICE, seed=SEED, **kw)
 
-    with tempfile.TemporaryDirectory() as root:
-        make_synthetic_voc(root, num_train=8, num_val=0, image_hw=MAP_HW,
-                           seed=SEED)
-        voc = VOC(dataset_dir=root)
-        model = make(torch.float32)
-        state = TrainState(model)
-        pipe = DetectionPipeline(voc.train_dataset, MAP_HW, 8, max_boxes=8,
-                                 mode=model.mode, shuffle=False, prefetch=0)
-        batch = next(iter(device_prefetch(pipe, DEVICE)))
-        step = make_train_step(model.mode, lambdas, model.anchors,
-                               momentum=0.9, weight_decay=0.0)
-        losses = []
-        for _ in range(MAP_STEPS):
-            state, metrics = step(state, batch, 1e-3)
-            losses.append(metrics["loss"])
-        losses = torch.stack(losses).tolist()
-        model16 = make(torch.bfloat16)
-        model16.load_state_dict(model.state_dict())
-        if model.mode == "v3":
-            label, int8_model, kw = "int8_dynamic", make(
-                torch.bfloat16, int8_dynamic=True), {}
-            int8_model.load_state_dict(model.state_dict())
-        else:
-            label, int8_model = "int8 (s2d)", model
-            kw = dict(int8_scales=te.calibrate(model, batch.image))
-        maps = {}
-        for name, mdl, kwargs in (("f32", model, {}), ("bf16", model16, {}),
-                                  ("int8", int8_model, kw)):
-            det = Detector(mdl, conf_thre=0.1, iou_thre=0.5, max_keep=16,
-                           **kwargs)
-            maps[name] = _map50(evaluate_batched(
-                det, voc.train_dataset, image_hw=MAP_HW, batch_size=8),
-                det.cls_list)
+    make_synthetic_voc(root, num_train=8, num_val=0, image_hw=MAP_HW,
+                       seed=SEED)
+    voc = VOC(dataset_dir=root)
+    model = make(torch.float32)
+    state = TrainState(model)
+    pipe = DetectionPipeline(voc.train_dataset, MAP_HW, 8, max_boxes=8,
+                             mode=model.mode, shuffle=False, prefetch=0)
+    batch = next(iter(device_prefetch(pipe, DEVICE)))
+    step = make_train_step(model.mode, lambdas, model.anchors,
+                           momentum=0.9, weight_decay=0.0)
+    losses = []
+    for _ in range(MAP_STEPS):
+        state, metrics = step(state, batch, 1e-3)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).tolist()
+    model16 = make(torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    if model.mode == "v3":
+        label, int8_model, kw = "int8_dynamic", make(
+            torch.bfloat16, int8_dynamic=True), {}
+        int8_model.load_state_dict(model.state_dict())
+    else:
+        label, int8_model = "int8 (s2d)", model
+        kw = dict(int8_scales=te.calibrate(model, batch.image))
+    maps = {}
+    for name, mdl, kwargs in (("f32", model, {}), ("bf16", model16, {}),
+                              ("int8", int8_model, kw)):
+        det = Detector(mdl, conf_thre=0.1, iou_thre=0.5, max_keep=16,
+                       **kwargs)
+        maps[name] = _map50(evaluate_batched(
+            det, voc.train_dataset, image_hw=MAP_HW, batch_size=8),
+            det.cls_list)
     print(f"int8_map {model_name}: {MAP_STEPS} f32 steps at {MAP_HW[0]}x"
           f"{MAP_HW[1]}, batch 8, loss {losses[0]:.3f} -> {losses[-1]:.4f}; "
           f"mAP@.5 on the 8 trained images (conf 0.1, max_keep 16): f32 "
@@ -1833,6 +1850,402 @@ def phase_int8_map(model_name: str = "YOLOv2"):
     if not maps["int8"] >= maps["bf16"] - 0.15:
         raise AssertionError(f"int8_map {model_name}: int8 mAP@.5 dropped "
                              f"beyond 0.15: {maps}")
+    return dict(model=model, batch=batch, dataset=voc.train_dataset,
+                lambdas=lambdas, int8=kw, maps=maps)
+
+
+# QAT path: YOLOv2-416 at batch 32, exact mode, in-step device augmentation,
+# at the fine-tune learning rate of ``--qat-lr``.  The trained 96x96 model
+# gets 20 steps at that rate too: at 1e-3 (the rate the JAX test uses from a
+# random init) the first steps overshoot, and one of four overfit models on
+# the card ended the steps above its starting loss.
+QAT_LR = 1e-4
+QAT_MAP_STEPS, QAT_MAP_LR = 20, 1e-4
+
+
+def _check_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def _twin_distances(model, model32, images, scales, stem, tf32):
+    """The JAX QAT test's distances of the twin (``exact=False``) and the
+    engine from the f32 model on ``images``, with cuDNN's TF32 allowed or
+    not inside the twin (the twin turns it off itself; ``tf32`` lifts
+    that for this measurement)."""
+    from odc_tpu_torch.ops import int8_engine as te
+    from odc_tpu_torch.ops import qat as tq
+
+    real = tq.ieee_f32_convs
+    prev = torch.backends.cudnn.allow_tf32
+    if tf32:
+        tq.ieee_f32_convs = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            qat = tq.yolov2_qat_forward(model, images, scales, stem=stem)
+    finally:
+        tq.ieee_f32_convs = real
+        torch.backends.cudnn.allow_tf32 = prev
+    with torch.no_grad():
+        ref = model32(images)
+        eng = te.yolov2_int8_forward(model, images, scales=scales, stem=stem)
+    err_eng = (eng - ref).abs()
+    return dict(max_qat=float((qat - ref).abs().max()),
+                max_eng=float(err_eng.max()),
+                mean_d=float((qat - eng).abs().mean()),
+                mean_eng=float(err_eng.mean())), eng
+
+
+def phase_qat(counters, trained):
+    """The QAT path (``train/qat.py::finetune_qat``): YOLOv2-416 at batch
+    32, f32 parameters from seed 0 with BN calibrated and randomized, the
+    activation ranges calibrated on one un-augmented batch of the in-memory
+    set (128 train, 32 val images).  Checks the twin against the engine by
+    the JAX QAT test's criteria for both stems (distances printed with
+    TF32 off and on) and exact mode bitwise equal to the engine; runs
+    ``finetune_qat`` exact with device augmentation for two epochs of four
+    steps, ``counters`` zeroed just before and read just after (20 GEMMs,
+    all wgmma, and 1 warp a step, 20 GEMMs a validation batch, nothing
+    else); holds one step's GEMMs against the plain version bitwise and
+    its warp against the plain warp within 1e-3; checks frozen BN, the
+    shipped scales, the checkpoints and serving from them; times the step
+    and its parts and the engine's validation batch; then a short QAT of
+    ``trained`` (``phase_int8_map``'s overfit 96x96 YOLOv2) must lower the
+    engine's loss on its images and keep its int8 mAP@.5 within 0.15."""
+    import dataclasses
+
+    from odc_tpu_torch.config import TRAIN_CONFIG
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.prefetch import device_prefetch
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops import qat as tq
+    from odc_tpu_torch.ops.augment import (
+        AugmentConfig, _invert_affine, sample_augment_params, warp_max_shear,
+    )
+    from odc_tpu_torch.ops.cuda.matmul_kernel import (
+        matmul, matmul_plain, route,
+    )
+    from odc_tpu_torch.ops.cuda.warp_kernel import (
+        warp_affine, warp_affine_plain,
+    )
+    from odc_tpu_torch.ops.detect import make_infer_fn
+    from odc_tpu_torch.train import (
+        calibrate_from_pipeline, checkpoint, finetune_qat,
+    )
+    from odc_tpu_torch.train.qat import make_engine_eval_step
+    from odc_tpu_torch.train.trainer import TrainState
+
+    t0 = time.perf_counter()
+    gpu = gpu_line()
+    cfg = dataclasses.replace(TRAIN_CONFIG["YOLOv2"]["VOC2012"], seed=SEED)
+    lambdas = Lambdas(cfg.lambda_xy, cfg.lambda_wh, cfg.lambda_conf,
+                      cfg.lambda_noobj, cfg.lambda_cls)
+    train_set = _RectanglesOnNoise(TRAIN_IMAGES, HW, SEED + 7)
+    val_set = _RectanglesOnNoise(VAL_IMAGES, HW, SEED + 8)
+    train_pipe = DetectionPipeline(
+        train_set, HW, TRAIN_BATCH, cfg.max_boxes, mode="v2", seed=SEED)
+    val_pipe = DetectionPipeline(
+        val_set, HW, TRAIN_BATCH, cfg.max_boxes, mode="v2", shuffle=False,
+        drop_remainder=False)
+    calib_pipe = DetectionPipeline(
+        train_set, HW, TRAIN_BATCH, cfg.max_boxes, mode="v2", shuffle=False)
+    model = YOLOv2(dtype=torch.bfloat16, device=DEVICE, seed=SEED).eval()
+    calib_batches = device_prefetch(calib_pipe, DEVICE)
+    images = next(calib_batches).image
+    calib_batches.close()  # stops the pipeline's prefetch thread
+    _calibrate_bn(model, images, torch.Generator().manual_seed(SEED + 3))
+    scales = calibrate_from_pipeline(model, calib_pipe, num_batches=1)
+    sync()
+    print(f"QAT: model built, BN calibrated, activation ranges calibrated on "
+          f"{TRAIN_BATCH} un-augmented images in "
+          f"{time.perf_counter() - t0:.1f} s; ranges in "
+          f"[{float(scales.min()):.4g}, {float(scales.max()):.4g}]")
+
+    # The twin against the engine and the f32 model at 416x416.
+    model32 = YOLOv2(dtype=torch.float32, device=DEVICE, seed=SEED)
+    model32.load_state_dict(model.state_dict())
+    model32.eval()
+    for stem in ("s2d", "plain"):
+        for tf32 in (False, True):
+            d, eng = _twin_distances(model, model32, images, scales, stem,
+                                     tf32)
+            ok = (d["max_qat"] <= 1.5 * d["max_eng"] + 1e-4
+                  and d["mean_d"] <= 0.75 * d["mean_eng"] + 1e-6)
+            print(f"QAT twin, stem {stem}, TF32 {'on ' if tf32 else 'off'}: "
+                  f"max |twin - f32| {d['max_qat']:.5f} (bound 1.5 x max "
+                  f"|engine - f32| = {1.5 * d['max_eng']:.5f}), mean |twin "
+                  f"- engine| {d['mean_d']:.6f} (bound 0.75 x mean |engine "
+                  f"- f32| = {0.75 * d['mean_eng']:.6f}): "
+                  f"{'within' if ok else 'outside'} the JAX test's criteria")
+            if not tf32 and not ok:
+                raise AssertionError(f"QAT twin ({stem}) outside the JAX "
+                                     f"test's criteria: {d}")
+        with torch.no_grad():
+            exact = tq.yolov2_qat_forward(model, images, scales, stem=stem,
+                                          exact=True)
+        if not torch.equal(exact, eng):
+            raise AssertionError(f"QAT exact mode ({stem}) != the engine")
+    print("QAT exact mode: torch.equal to the engine for both stems")
+    # The twin's own switch: with TF32 allowed globally (PyTorch's default
+    # for cuDNN) it still computes the IEEE f32 values.
+    with torch.no_grad():
+        ieee = tq.yolov2_qat_forward(model, images, scales)
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            local = tq.yolov2_qat_forward(model, images, scales)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    if not torch.equal(local, ieee):
+        raise AssertionError("QAT twin: TF32 allowed globally leaks into it")
+    print("QAT twin with cuDNN TF32 allowed globally: torch.equal to TF32 "
+          "off (ieee_f32_convs)")
+    del model32, exact, eng, ieee, local
+
+    # The fine-tune, counted.
+    aug = AugmentConfig()
+    state = TrainState(model)
+    bn_before = {k: v.clone() for k, v in model.state_dict().items()
+                 if "running" in k}
+    steps = TRAIN_EPOCHS * len(train_pipe)
+    val_batches = TRAIN_EPOCHS * len(val_pipe)
+    mm = counters["int8_matmul"]
+    with tempfile.TemporaryDirectory() as ckpt_path:
+        plain_calls: list = []
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        mm.launches_by_route = dict.fromkeys(mm.launches_by_route, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with _count_plain_warps(plain_calls):
+            state, hist = finetune_qat(
+                model, state, train_pipe, val_pipe, scales, ckpt_path,
+                epochs=TRAIN_EPOCHS, lr=QAT_LR, momentum=0.9,
+                weight_decay=cfg.weight_decay, lambdas=lambdas,
+                augment_cfg=aug, seed=SEED)
+        sync()
+        fit_s = time.perf_counter() - t
+        launches = {name: w.launches for name, w in counters.items()}
+        by_route = dict(mm.launches_by_route)
+        print(f"main path (QAT fine-tune, exact, device augmentation): "
+              f"{fit_s:.2f} s for {steps} steps and {val_batches} engine "
+              f"validation batches, launches {launches}, GEMM launches by "
+              f"route {by_route}, plain warps {len(plain_calls)}, peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        _check_launches("QAT fine-tune", launches, {
+            "int8_matmul": 20 * (steps + val_batches), "nms_suppress": 0,
+            "superstem": 0, "warp_affine": steps})
+        _check_launches("QAT fine-tune GEMM routes", by_route, {
+            "wgmma": 20 * (steps + val_batches), "mma_sync": 0})
+        if plain_calls:
+            raise AssertionError("QAT: the plain warp ran")
+        losses = hist["train_loss_mean_list"] + hist["val_loss_list"]
+        print(f"QAT loss per epoch {hist['train_loss_mean_list']}, engine "
+              f"val {hist['val_loss_list']}")
+        if len(losses) != 2 * TRAIN_EPOCHS or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"QAT: non-finite or missing losses {hist}")
+        if state.step != steps:
+            raise AssertionError(f"QAT: step {state.step} != {steps}")
+        bn_after = model.state_dict()
+        for k, v in bn_before.items():
+            if not torch.equal(bn_after[k], v):
+                raise AssertionError(f"QAT moved the BN statistic {k}")
+        if set(os.listdir(ckpt_path)) != {
+                "best_qat_model.ckpt", "final_qat_model.ckpt",
+                "int8_scales.npy", "metrics.jsonl"}:
+            raise AssertionError(f"QAT artifacts {os.listdir(ckpt_path)}")
+        shipped = np.load(os.path.join(ckpt_path, "int8_scales.npy"))
+        if not np.array_equal(shipped, scales.cpu().numpy()):
+            raise AssertionError("int8_scales.npy != the frozen scales")
+        after = _state_tensors(state)
+        final = checkpoint.restore(
+            os.path.join(ckpt_path, "final_qat_model.ckpt"),
+            TrainState(YOLOv2(dtype=torch.bfloat16, device=DEVICE,
+                              seed=SEED + 1)))
+        restored = _state_tensors(final)
+        if final.step != state.step or not all(
+                torch.equal(after[k], restored[k]) for k in after):
+            raise AssertionError("QAT: the final checkpoint does not restore "
+                                 "the state")
+        best = checkpoint.restore(
+            os.path.join(ckpt_path, "best_qat_model.ckpt"),
+            TrainState(YOLOv2(dtype=torch.bfloat16, device=DEVICE,
+                              seed=SEED + 2)))
+        best_step = best.step
+        if best_step not in (steps // TRAIN_EPOCHS, steps) or not all(
+                bool(torch.isfinite(v).all())
+                for v in _state_tensors(best).values()):
+            raise AssertionError(f"QAT: best checkpoint at step {best_step}")
+        del best, restored, after
+        # The tuned state and the shipped scales serve.
+        infer = make_infer_fn(final.model, 0.9, 0.5, MAX_KEEP,
+                              int8_scales=shipped)
+        for conf_thre in (0.9, 0.05):
+            before = {k: w.launches for k, w in counters.items()}
+            boxes, conf, cls, keep = infer(images, conf_thre=conf_thre)
+            sync()
+            call = {k: w.launches - before[k] for k, w in counters.items()}
+            _check_launches("QAT-tuned int8 serving", call, {
+                "int8_matmul": 20, "nms_suppress": 1, "superstem": 0,
+                "warp_affine": 0})
+            if boxes.shape != (TRAIN_BATCH, MAX_KEEP, 4) or not all(
+                    bool(torch.isfinite(t).all()) for t in (boxes, conf)):
+                raise AssertionError("QAT-tuned serving: bad outputs")
+        print("QAT artifacts written; BN statistics bitwise frozen; "
+              "int8_scales.npy == the frozen scales; the final checkpoint "
+              f"restores the state, the best one (step {best_step}) "
+              "restores; the tuned state serves through make_infer_fn("
+              "int8_scales=...) with 20 GEMMs and 1 NMS a call (kept at "
+              f"conf 0.05: {int(keep.sum())})")
+        del final, infer
+
+    # One step's GEMMs and warp against their plain versions, on the
+    # step's own operands and maps.
+    step = tq.make_qat_train_step(model, lambdas, scales, momentum=0.9,
+                                  weight_decay=cfg.weight_decay,
+                                  augment_cfg=aug)
+    batches = device_prefetch(train_pipe, DEVICE)
+    batch = next(batches)
+    batches.close()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    g_state = gen.get_state()
+    recorded = []
+
+    def record(real, a, b):
+        recorded.append((a, b))
+        return real(a, b)
+
+    with _swap_matmul(record):
+        step(state, batch, QAT_LR, gen)
+    if len(recorded) != 20:
+        raise AssertionError(f"QAT step: {len(recorded)} GEMMs")
+    for i, (a, b) in enumerate(recorded):
+        m, k = a.shape
+        if route(m, b.shape[1], k, a.dtype, a, b) != "wgmma":
+            raise AssertionError(f"QAT step GEMM {i}: not the wgmma route")
+        if not torch.equal(matmul(a, b), matmul_plain(a, b)):
+            raise AssertionError(f"QAT step GEMM {i}: kernel != plain")
+    rows = [a.shape[0] for a, _ in recorded]
+    print(f"QAT step: its 20 GEMMs (M {min(rows)} to {max(rows)}) bitwise "
+          f"equal to plain, all on the wgmma route")
+    del recorded
+    replay = torch.Generator(device=DEVICE)
+    replay.set_state(g_state)
+    params = sample_augment_params(replay, TRAIN_BATCH, aug, HW, DEVICE)
+    _, _, err = _check_warp(
+        warp_affine, warp_affine_plain, batch.image.float(),
+        _invert_affine(params.ms), warp_max_shear(aug), 0, 1e-3,
+        "QAT step batch")
+    print(f"QAT step: warp kernel vs plain on the step's images and maps: "
+          f"max |kernel - plain| {err:.3e} (bound 1e-3)")
+
+    # Timing: steps on a resident batch, host clock, synchronised.
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(3 + TIMED_STEPS):
+        t = time.perf_counter()
+        step(state, batch, QAT_LR, gen)
+        sync()
+        if i >= 3:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms)
+    q = statistics.quantiles(step_ms, n=4)
+    img_s = TRAIN_BATCH / med * 1e3
+    marks = []
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    marked = tq.make_qat_train_step(model, lambdas, scales, momentum=0.9,
+                                    weight_decay=cfg.weight_decay,
+                                    augment_cfg=aug, on_phase=on_phase)
+    parts, iters = {}, 5
+    for it in range(iters + 1):
+        marks.clear()
+        on_phase("start")
+        marked(state, batch, QAT_LR, gen)
+        sync()
+        if it == 0:
+            continue
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            parts[name] = parts.get(name, 0.0) + a.elapsed_time(b) / iters
+    busy = _profile(lambda: step(state, batch, QAT_LR, gen),
+                    also=("matmul_kernel", "warp_affine"))
+    eval_step = make_engine_eval_step(model, lambdas, scales)
+    eval_ms = []
+    for i in range(3 + TIMED_STEPS):
+        t = time.perf_counter()
+        eval_step(state, batch)
+        sync()
+        if i >= 3:
+            eval_ms.append((time.perf_counter() - t) * 1e3)
+    total = sum(parts.values())
+    print(f"QAT figures, YOLOv2-416, batch {TRAIN_BATCH}, exact, device "
+          f"augmentation ({gpu}): median {med:.3f} ms/step (quartiles "
+          f"{q[0]:.3f} / {q[2]:.3f}, n={len(step_ms)}) -> {img_s:.1f} img/s;"
+          f" peak device memory {peak_gb:.2f} GB; device busy "
+          f"{busy if busy is None else round(busy, 1)}%")
+    print(f"QAT step breakdown, device ms per step (CUDA events, {iters} "
+          f"steps; {gpu}): " + ", ".join(
+              f"{k} {v:.3f} ({100 * v / total:.1f}%)"
+              for k, v in parts.items()) + f"; sum {total:.3f}")
+    print(f"QAT engine validation batch ({TRAIN_BATCH} images, {gpu}): "
+          f"median {statistics.median(eval_ms):.3f} ms (n={len(eval_ms)})")
+    del state, step, marked, batch
+    qat_s = time.perf_counter() - t0
+
+    # The deliverable, on the overfit 96x96 model.
+    _qat_on_trained(trained)
+    print(f"QAT phase took {qat_s:.1f} s before the trained-model run")
+    return launches, by_route, img_s
+
+
+def _qat_on_trained(trained):
+    """A short exact-mode QAT (``QAT_MAP_STEPS`` steps at ``QAT_MAP_LR``,
+    momentum 0.9, no weight decay) of ``phase_int8_map``'s overfit YOLOv2 on
+    its own batch, under the scales it was scored with: the engine's loss
+    on those images must fall and the int8 mAP@.5 stay within 0.15 of its
+    score before."""
+    from odc_tpu_torch.eval import Detector, evaluate_batched
+    from odc_tpu_torch.ops import qat as tq
+    from odc_tpu_torch.train.qat import make_engine_eval_step
+    from odc_tpu_torch.train.trainer import TrainState
+
+    model, batch = trained["model"], trained["batch"]
+    scales = trained["int8"]["int8_scales"]
+    lambdas = trained["lambdas"]
+    engine_loss = make_engine_eval_step(model, lambdas, scales)
+    state = TrainState(model)
+    l0 = float(engine_loss(state, batch))
+    step = tq.make_qat_train_step(model, lambdas, scales, momentum=0.9,
+                                  weight_decay=0.0)
+    losses = []
+    for _ in range(QAT_MAP_STEPS):
+        state, metrics = step(state, batch, QAT_MAP_LR)
+        losses.append(metrics["loss"])
+    l1 = float(engine_loss(state, batch))
+    det = Detector(model, conf_thre=0.1, iou_thre=0.5, max_keep=16,
+                   int8_scales=scales)
+    after = _map50(evaluate_batched(det, trained["dataset"], image_hw=MAP_HW,
+                                    batch_size=8), det.cls_list)
+    before = trained["maps"]["int8"]
+    print(f"QAT on the overfit {MAP_HW[0]}x{MAP_HW[1]} YOLOv2: "
+          f"{QAT_MAP_STEPS} exact steps at lr {QAT_MAP_LR}, step losses "
+          f"{[round(x, 4) for x in torch.stack(losses).tolist()]}; engine "
+          f"loss {l0:.5f} -> {l1:.5f}; int8 mAP@.5 {before:.4f} -> "
+          f"{after:.4f} (bound: drop <= 0.15)")
+    if not l1 < l0:
+        raise AssertionError(f"QAT did not lower the engine's loss: {l0} -> "
+                             f"{l1}")
+    if not after >= before - 0.15:
+        raise AssertionError(f"QAT: int8 mAP@.5 {before} -> {after}")
 
 
 def _v1_served(infer, model, images, units: bool = True):
@@ -2499,10 +2912,14 @@ def main() -> int:
     phase_eval(model, scales, counters)
     del model, scales
     torch.cuda.empty_cache()
-    phase_int8_map()
     every = {"int8_matmul": matmul, "nms_suppress": suppress,
              "superstem": superstem, "warp_affine": warp_affine}
-    train_launches, train_img_s = phase_train(every)
+    with tempfile.TemporaryDirectory() as map_root:
+        trained = phase_int8_map("YOLOv2", map_root)
+        train_launches, train_img_s = phase_train(every)
+        torch.cuda.empty_cache()
+        qat_launches, qat_routes, qat_img_s = phase_qat(every, trained)
+        del trained
     torch.cuda.empty_cache()
     v1_launches, v1_img_s = phase_yolov1(every)
     torch.cuda.empty_cache()
@@ -2514,14 +2931,16 @@ def main() -> int:
     phase_int8_map("YOLOv3")
     v3_train_launches, v3_train_img_s = phase_train(every, "YOLOv3", V3_HW)
     print(f"launches by path: YOLOv2 serving {launches}, YOLOv2 training "
-          f"{train_launches}, YOLOv1 serving {v1_launches}, YOLOv1 training "
-          f"{v1_train_launches}, YOLOv3 serving bf16 {v3_launches}, "
-          f"int8_dynamic {v3_launches8}, YOLOv3 training {v3_train_launches}")
+          f"{train_launches}, YOLOv2 QAT fine-tune {qat_launches}, YOLOv1 "
+          f"serving {v1_launches}, YOLOv1 training {v1_train_launches}, "
+          f"YOLOv3 serving bf16 {v3_launches}, int8_dynamic {v3_launches8}, "
+          f"YOLOv3 training {v3_train_launches}")
     # Each kernel's launches are those of the main paths that run it (the
     # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths; the warp: the
-    # three training paths; the GEMM: the YOLOv2 int8 engine and YOLOv3
-    # int8_dynamic); the GEMM's times are sums over the 20 GEMMs of one
-    # YOLOv2 int8 call (the 32 of a YOLOv3 call are printed above).
+    # three training paths and the QAT fine-tune; the GEMM: the YOLOv2 int8
+    # engine, the QAT fine-tune and YOLOv3 int8_dynamic); the GEMM's times
+    # are sums over the 20 GEMMs of one YOLOv2 int8 call (the 32 of a
+    # YOLOv3 call are printed above).
     kernels = [
         dict(name="nms_suppress", route="cuda",
              source="odc_tpu_torch/csrc/nms_suppress.cu",
@@ -2537,6 +2956,7 @@ def main() -> int:
              source="odc_tpu_torch/csrc/warp_affine.cu",
              replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
              launches=(train_launches["warp_affine"]
+                       + qat_launches["warp_affine"]
                        + v1_train_launches["warp_affine"]
                        + v3_train_launches["warp_affine"]), **warp),
         dict(name="int8_matmul", route="cuda",
@@ -2544,13 +2964,17 @@ def main() -> int:
              replaces="scripts/probe_int8_mxu.py:76",
              **{**mm, "launches_by_route": {
                  "wgmma": (mm["launches_by_route"]["wgmma"]
+                           + qat_routes["wgmma"]
                            + v3_launches8["int8_matmul"]),
-                 "mma_sync": mm["launches_by_route"]["mma_sync"]}},
+                 "mma_sync": (mm["launches_by_route"]["mma_sync"]
+                              + qat_routes["mma_sync"])}},
              launches=(int8_launches["int8_matmul"]
+                       + qat_launches["int8_matmul"]
                        + v3_launches8["int8_matmul"])),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
           f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "
+          f"QAT {qat_img_s:.1f} img/s; "
           f"native (bucket calls, img/s) {native}; YOLOv1 e2e "
           f"{v1_img_s:.1f} img/s, train {v1_train_img_s:.1f} img/s; YOLOv3 "
           f"e2e bf16 {v3_img_s:.1f} img/s, int8_dynamic {v3_img_s8:.1f} "

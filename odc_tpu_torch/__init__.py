@@ -19,7 +19,10 @@ mAP (``ops/detect.py::make_native_infer_fn``, ``eval/``, ``core/ap.py``)
 and the trainer's mAP hook; YOLOv1 (GoogLeNet, ``models/yolov1.py``) for
 inference, evaluation and training; YOLOv3 (Darknet-53 and the FPN,
 ``models/yolov3.py``) for inference in bf16 and with ``int8_dynamic``,
-evaluation and training (``losses/yolov3_loss.py``).
+evaluation and training (``losses/yolov3_loss.py``); quantization-aware
+fine-tuning of YOLOv2 against the int8 engine (``ops/qat.py``,
+``train/qat.py``, ``--qat``), and the reader of the JAX package's
+checkpoints (``train/checkpoint.py``).
 
 Entry points (model constructors, the training command line) default to
 ``device="cuda"`` and raise when no card is present; the CPU runs only when

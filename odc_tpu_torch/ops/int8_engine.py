@@ -258,8 +258,13 @@ def _conv_bf16(x, kernel, stride=1, padding="same"):
 
 
 def _pool(x):
-    """2x2/2 max pool, floor, of an NHWC map of any dtype (int8 included:
-    a reshape and ``amax``, not ``F.max_pool2d``)."""
+    """2x2/2 max pool, floor, of an NHWC map of any dtype.  Float maps go
+    through ``F.max_pool2d``, whose gradient goes to the first maximum of a
+    window, as XLA's ``max_pool`` gradient does (``amax`` would split it
+    between ties, and the QAT twin's fake-quantized maps tie often); int8
+    codes through a reshape and ``amax``."""
+    if x.is_floating_point():
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
     b, hh, ww, c = x.shape
     h, w = hh // 2, ww // 2
     return x[:, : 2 * h, : 2 * w].reshape(b, h, 2, w, 2, c).amax(dim=(2, 4))

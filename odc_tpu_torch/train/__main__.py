@@ -17,6 +17,17 @@ heads follow the size (``size // 32``, ``// 16`` and ``// 8``).
 in-training hook (``--eval-map-every``) and the run after training
 (``--eval-map``).  The JAX package's ``train.py`` scores the latter at the
 detector's default 0.9 instead.
+
+``--qat CKPT`` (YOLOv2 only) fine-tunes a trained checkpoint against the
+frozen-scales int8 engine instead of training (``train/qat.py``): it
+calibrates the activation ranges on ``--qat-calib-batches`` un-augmented
+train batches, runs ``--qat-epochs`` epochs at ``--qat-lr`` (momentum 0.9
+unless ``--momentum`` says otherwise) and writes ``best_qat_model.ckpt``,
+``final_qat_model.ckpt``, ``int8_scales.npy`` and ``metrics.jsonl``.
+``--qat`` and ``--resume`` read this package's checkpoints and the JAX
+package's (flax msgpack) alike.
+
+    python -m odc_tpu_torch.train --model YOLOv2 --qat best_model.ckpt
 """
 
 from __future__ import annotations
@@ -26,7 +37,6 @@ import datetime
 import os
 
 _LATER = {
-    "qat": "--qat comes with the QAT slice of the port",
     "data_parallel": "--data-parallel comes with the data-parallel slice of "
     "the port",
     "model_parallel": "--model-parallel comes with the data-parallel slice "
@@ -65,7 +75,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="generate and train on a tiny synthetic VOC")
     p.add_argument("--resume", default=None,
-                   help="checkpoint path to resume from")
+                   help="checkpoint path to resume from (this package's or "
+                   "the JAX package's)")
     p.add_argument("--eval-map", action="store_true",
                    help="run batched VOC mAP on the val set after training")
     p.add_argument("--eval-map-every", type=int, default=0, metavar="N",
@@ -75,9 +86,18 @@ def parse_args(argv=None):
     p.add_argument("--eval-map-conf", type=float, default=0.05,
                    help="confidence threshold of --eval-map-every and "
                    "--eval-map (low default: mAP needs the full PR curve)")
+    p.add_argument("--qat", default=None, metavar="CKPT",
+                   help="QAT mode (YOLOv2 only): fine-tune this trained "
+                   "checkpoint against the frozen-scales int8 engine "
+                   "(odc_tpu_torch.train.qat) instead of training; writes "
+                   "best/final_qat_model.ckpt + int8_scales.npy")
+    p.add_argument("--qat-epochs", type=int, default=10)
+    p.add_argument("--qat-lr", type=float, default=1e-4)
+    p.add_argument("--qat-calib-batches", type=int, default=1,
+                   help="train batches (un-augmented) to calibrate "
+                   "activation scales on")
     # Flags of paths that are not ported yet: accepted so that a command
     # line written for the JAX package fails with a clear message.
-    p.add_argument("--qat", default=None, metavar="CKPT", help=_LATER["qat"])
     p.add_argument("--data-parallel", type=int, default=None,
                    help=_LATER["data_parallel"])
     p.add_argument("--model-parallel", type=int, default=None,
@@ -94,6 +114,9 @@ def parse_args(argv=None):
             p.error(f"not ported yet: {message}")
     if args.image_size is not None and args.image_size % 32:
         p.error("--image-size must be a multiple of 32")
+    if args.qat and args.model != "YOLOv2":
+        p.error("--qat is YOLOv2-only (the int8 engine hardcodes the "
+                "Darknet-19/quadrant graph)")
     args.augment = aug_mode
     return args
 
@@ -170,12 +193,17 @@ def main(argv=None) -> None:
         drop_remainder=False,
     )
 
+    augment_cfg = AugmentConfig() if args.augment == "device" else None
     trainer = Trainer(
         model, train_pipe, val_pipe, train_cfg, ckpt_path=ckpt_path,
-        augment_cfg=AugmentConfig() if args.augment == "device" else None,
+        augment_cfg=augment_cfg,
         eval_map_every=args.eval_map_every,
         eval_map_conf_thre=args.eval_map_conf,
     )
+
+    if args.qat:
+        _finetune_qat(args, trainer, dataset, augment_cfg)
+        return
 
     state = None
     if args.resume:
@@ -198,6 +226,43 @@ def main(argv=None) -> None:
         )
         aps = np.stack([result[c] for c in dataset.cls_list])
         print(f"mAP[.5:.95]: {aps.mean():.4f}  mAP@.5: {aps[:, 0].mean():.4f}")
+
+
+def _finetune_qat(args, trainer, dataset, augment_cfg) -> None:
+    """``--qat``: restore the checkpoint into the trainer's fresh state,
+    calibrate on un-augmented train batches, fine-tune against the int8
+    engine with the trainer's pipelines, loss weights and folder."""
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.train import (
+        calibrate_from_pipeline, checkpoint, finetune_qat,
+    )
+
+    cfg = trainer.config
+    state = checkpoint.restore(args.qat, trainer.init_state())
+    print(f"QAT from {args.qat} (step {state.step})")
+    # Calibration must see un-augmented deployment-distribution pixels.
+    calib_pipe = DetectionPipeline(
+        dataset.train_dataset,
+        image_hw=trainer.train_pipeline.image_hw,
+        batch_size=cfg.batch_size,
+        max_boxes=cfg.max_boxes,
+        mode="v2",
+        cls_list=dataset.cls_list,
+        shuffle=False,
+    )
+    scales = calibrate_from_pipeline(trainer.model, calib_pipe,
+                                     num_batches=args.qat_calib_batches)
+    finetune_qat(
+        trainer.model, state, trainer.train_pipeline, trainer.val_pipeline,
+        scales, ckpt_path=trainer.ckpt_path, epochs=args.qat_epochs,
+        lr=args.qat_lr,
+        # QAT is a new capability, not reference parity: real momentum by
+        # default.
+        momentum=args.momentum if args.momentum is not None else 0.9,
+        weight_decay=cfg.weight_decay, lambdas=trainer.lambdas,
+        augment_cfg=augment_cfg, seed=cfg.seed,
+    )
+    print(f"done; QAT checkpoints + int8_scales.npy in {trainer.ckpt_path}")
 
 
 if __name__ == "__main__":

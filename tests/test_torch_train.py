@@ -612,7 +612,6 @@ def test_trainer_map_hook(voc, tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "argv, message",
     [(["--augment", "host"], "host-augment slice"),
-     (["--qat", "x.ckpt"], "QAT slice"),
      (["--data-parallel", "2"], "data-parallel slice"),
      (["--model-parallel", "2"], "data-parallel slice"),
      (["--image-size", "100"], "multiple of 32")],
@@ -622,6 +621,63 @@ def test_cli_names_the_later_slice(argv, message, capsys):
         cli.parse_args(argv)
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
+
+
+def test_cli_parses_the_qat_flags():
+    """``--qat CKPT`` and its three flags, with the JAX ``train.py``'s
+    defaults (10 epochs, lr 1e-4, one calibration batch)."""
+    args = cli.parse_args(["--model", "YOLOv2", "--qat", "x.ckpt"])
+    assert (args.qat, args.qat_epochs, args.qat_lr,
+            args.qat_calib_batches) == ("x.ckpt", 10, 1e-4, 1)
+    args = cli.parse_args(["--model", "YOLOv2", "--qat", "x.ckpt",
+                           "--qat-epochs", "3", "--qat-lr", "2e-3",
+                           "--qat-calib-batches", "4"])
+    assert (args.qat_epochs, args.qat_lr, args.qat_calib_batches) == (
+        3, 2e-3, 4)
+    assert cli.parse_args(["--model", "YOLOv2"]).qat is None
+
+
+@pytest.mark.parametrize("model", ["YOLOv1", "YOLOv3"])
+def test_cli_qat_is_yolov2_only(model, capsys):
+    """The int8 engine hardcodes the Darknet-19/quadrant graph, so ``--qat``
+    refuses the other models, as the JAX ``train.py`` does."""
+    with pytest.raises(SystemExit) as exc:
+        cli.parse_args(["--model", model, "--qat", "x.ckpt"])
+    assert exc.value.code == 2
+    assert "YOLOv2-only" in capsys.readouterr().err
+
+
+def test_cli_qat_on_the_cpu(tmp_path):
+    """``python -m odc_tpu_torch.train --qat`` end to end in a subprocess on
+    a checkpoint of the port's seeded YOLOv2: calibration, one exact-mode
+    epoch with device augmentation, and the four outputs."""
+    ckpt = tmp_path / "start.ckpt"
+    checkpoint.save(str(ckpt), ttrainer.TrainState(YOLOv2(device="cpu")))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
+             "--model", "YOLOv2", "--synthetic", "--image-size", "64",
+             "--batch-size", "4", "--qat", str(ckpt), "--qat-epochs", "1",
+             "--dataset-dir", str(tmp_path / "voc"),
+             "--ckpt-root", str(tmp_path / "ckpts")],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "QAT Epoch: 1 -->" in proc.stdout
+        (run_dir,) = (tmp_path / "ckpts" / "YOLOv2").iterdir()
+        assert {p.name for p in run_dir.iterdir()} == {
+            "best_qat_model.ckpt", "final_qat_model.ckpt", "int8_scales.npy",
+            "metrics.jsonl"}
+        assert np.load(run_dir / "int8_scales.npy").shape == (22, 2)
+        rows = [json.loads(line) for line in
+                (run_dir / "metrics.jsonl").read_text().splitlines()]
+        assert [r["kind"] for r in rows] == ["qat_epoch", "qat_val_epoch"]
+        assert all(np.isfinite(r.get("loss", r.get("loss_mean")))
+                   for r in rows)
+    finally:
+        ckpt.unlink()
+        for run_dir in (tmp_path / "ckpts").glob("*/*"):
+            _remove_checkpoints(run_dir)
 
 
 @pytest.mark.parametrize("model", ["YOLOv1", "YOLOv2", "YOLOv3"])
