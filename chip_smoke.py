@@ -57,6 +57,18 @@ just before and read just after:
   precisions; the int8 mAP@.5 of a YOLOv3 overfit at 96x96 (bf16 above
   0.3, ``int8_dynamic`` at most 0.15 below it); then YOLOv3-416 training
   at batch 32 as above;
+* serving — the YOLOv2-416 model exported with ``odc_tpu_torch.serve``,
+  saved, loaded back and served at batch 64 in bf16 and int8_full (s2d):
+  export s, artifact MB, load s, first call, 20 calls of the loaded program
+  against the direct ``make_infer_fn`` call, ``predict`` with its numpy
+  round trip, outputs equal to the direct call's, launches (1 superstem and
+  1 NMS a bf16 call; 20 GEMMs, all wgmma, and 1 NMS an int8 call) counted
+  inside the loaded program, no more device-to-host copies than the
+  direct call; a symbolic-batch artifact behind the BatchingServer (8
+  clients, 1024 single images: img/s, p50/p99, mean device batch); the HTTP
+  door (4 clients x 8 POSTs of 16 images, annots equal the engine's); and
+  YOLOv1-224 and YOLOv3-416 int8_dynamic artifacts at batch 8, equal to
+  their direct calls;
 * QAT — YOLOv2-416 fine-tuned against the int8 engine at batch 32
   (``train/qat.py::finetune_qat``, exact mode, device augmentation) after
   calibrating on one un-augmented batch: the fake-quant twin against the
@@ -1694,6 +1706,443 @@ def _map_scores(result, cls_list):
     return float(aps[:, 0].mean()), float(aps.mean())
 
 
+# Serving from exported artifacts (phase serve): YOLOv2-416 at the main
+# path's batch, a symbolic-batch artifact behind the BatchingServer and the
+# HTTP door, and YOLOv1-224 / YOLOv3-416 artifacts at a small batch.
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 1024
+HTTP_CLIENTS, HTTP_POSTS, HTTP_BODY = 4, 8, 16
+SERVE_SMALL_BATCH = 8
+
+
+def _labels(out):
+    """Labels of an engine output tuple, compact or not."""
+    return out[2] if len(out) == 5 else out[2].argmax(-1)
+
+
+def _served_equal(label, got, ref) -> bool:
+    """The loaded artifact's outputs against the direct call's.  Bitwise is
+    expected; otherwise the keep masks and labels must be equal and boxes
+    and confidences within rtol 1e-3 (a difference for ROADMAP Queue 3,
+    printed), else the phase fails."""
+    if all(torch.equal(g, r) for g, r in zip(got, ref)):
+        return True
+    if not (torch.equal(got[-1], ref[-1])
+            and torch.equal(_labels(got), _labels(ref))):
+        raise AssertionError(f"serve {label}: keep masks or labels differ "
+                             "from the direct call")
+    for name, g, r in (("boxes", got[0], ref[0]), ("conf", got[1], ref[1])):
+        scale = float(r.abs().max()) or 1.0
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3 * scale,
+                                   msg=f"serve {label}: {name}")
+    diffs = [float((g.float() - r.float()).abs().max())
+             for g, r in zip(got[:-1], ref[:-1])]
+    print(f"serve {label}: NOT bitwise the direct call (keep masks and "
+          f"labels equal; max |diff| per output {diffs})")
+    return False
+
+
+def _zero(counters):
+    mm = counters["int8_matmul"]
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    mm.launches_by_route = dict.fromkeys(mm.launches_by_route, 0)
+
+
+def _read(counters):
+    out = {k: w.launches for k, w in counters.items()}
+    out["wgmma"] = counters["int8_matmul"].launches_by_route["wgmma"]
+    return out
+
+
+def _add(total, step):
+    for k, v in step.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _dtoh_copies(fn) -> int:
+    """Device-to-host copies in one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum("DtoH" in e.name for e in prof.events())
+
+
+def _export_load(label, export, tmp):
+    """Export (``export()`` gives the bytes), save into ``tmp``, load from
+    the file and delete it: (engine, export s, MB, load s)."""
+    from odc_tpu_torch.serve import load_engine, save_engine
+
+    t = time.perf_counter()
+    data = export()
+    export_s = time.perf_counter() - t
+    mb = len(data) / 1e6
+    path = os.path.join(tmp, f"{label}.odce")
+    save_engine(path, data)
+    del data
+    t = time.perf_counter()
+    engine = load_engine(path, DEVICE)
+    sync()
+    load_s = time.perf_counter() - t
+    os.remove(path)
+    return engine, export_s, mb, load_s
+
+
+def _hop_us():
+    """Host µs a launch that the operator adds on this machine: the NMS
+    launcher called directly, the operator, and the wrapper (checks, then
+    the operator), 2000 calls each on the main path's candidate shape,
+    queued back to back (each is host-bound: the kernel takes 5.5 µs), three
+    times in turns.  Returns the medians in that order."""
+    from odc_tpu_torch.ops.cuda import nms_kernel
+
+    gen = torch.Generator().manual_seed(SEED + 43)
+    boxes = torch.rand(BATCH, MAX_KEEP, 4, generator=gen).to(DEVICE)
+    boxes[..., 2:] += boxes[..., :2]
+    valid = (torch.rand(BATCH, MAX_KEEP, generator=gen) < 0.7).to(DEVICE)
+    iou = torch.tensor(0.5)
+    fns = [lambda: nms_kernel._launch(boxes, valid, 0.5),
+           lambda: torch.ops.odc_tpu_torch.nms_suppress(boxes, valid, iou),
+           lambda: nms_kernel.suppress(boxes, valid, 0.5)]
+    times = [[], [], []]
+    for _ in range(3):
+        for i, fn in enumerate(fns):
+            for _ in range(50):
+                fn()
+            sync()
+            t = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            sync()
+            times[i].append((time.perf_counter() - t) / 2000 * 1e6)
+    return [statistics.median(t) for t in times]
+
+
+def _served_run(label, engine, images, counters, want, calls):
+    """``calls`` calls of the loaded program on ``images`` on the card, the
+    launch counts set to 0 just before and read just after, each call
+    checked for ``want`` launches.  Returns (ms per call, launches); the
+    first entry is the first call after loading."""
+    _zero(counters)
+    call_ms = []
+    for i in range(calls):
+        before = _read(counters)
+        t = time.perf_counter()
+        engine.forward(images)
+        sync()
+        call_ms.append((time.perf_counter() - t) * 1e3)
+        step = {k: v - before[k] for k, v in _read(counters).items()}
+        if step != want:
+            raise AssertionError(f"serve {label} call {i}: launches {step}, "
+                                 f"want {want}")
+    return call_ms, _read(counters)
+
+
+def _serve_batch(label, model, images, counters, tmp, want, **kw):
+    """YOLOv2-416 at the main path's batch from an artifact: export, size,
+    load, first call, median of 20 calls on device tensors against the
+    direct ``make_infer_fn`` call, ``predict`` with its numpy round trip,
+    equality with the direct call at conf 0.9 and 0.0, and the
+    device-to-host copies of one call."""
+    from odc_tpu_torch.ops.detect import make_infer_fn
+    from odc_tpu_torch.serve import export_engine
+
+    engine, export_s, mb, load_s = _export_load(label, lambda: export_engine(
+        model, batch_size=BATCH, image_hw=HW, max_keep=MAX_KEEP, **kw), tmp)
+    call_ms, launches = _served_run(label, engine, images, counters, want,
+                                    1 + 3 + TIMED_CALLS)
+    first_ms, served_ms = call_ms[0], call_ms[4:]
+    direct = make_infer_fn(model, 0.9, 0.5, MAX_KEEP, **kw)
+    direct_ms = []
+    for i in range(3 + TIMED_CALLS):
+        t = time.perf_counter()
+        direct(images)
+        sync()
+        if i >= 3:
+            direct_ms.append((time.perf_counter() - t) * 1e3)
+    host = images.cpu().numpy()
+    _zero(counters)
+    predict_ms = []
+    for i in range(2 + TIMED_CALLS // 2):
+        t = time.perf_counter()
+        outs = engine.predict(host)
+        if i >= 2:
+            predict_ms.append((time.perf_counter() - t) * 1e3)
+    _add(launches, _read(counters))
+    if outs[0].shape != (BATCH, MAX_KEEP, 4):
+        raise AssertionError(f"serve {label}: predict shapes")
+    bitwise = True
+    for conf in (0.9, 0.0):
+        got = engine.forward(images, conf)
+        ref = direct(images, conf_thre=conf)
+        bitwise &= _served_equal(f"{label} conf {conf}", got, ref)
+        if not all(bool(torch.isfinite(t).all()) for t in got[:-1]):
+            raise AssertionError(f"serve {label}: non-finite outputs")
+        print(f"serve {label} at conf {conf}: kept per image "
+              f"{got[-1].sum(1).tolist()[:16]} ... (artifact "
+              f"{'==' if bitwise else '~'} direct call)")
+    d2h = (_dtoh_copies(lambda: engine.forward(images)),
+           _dtoh_copies(lambda: direct(images)))
+    if d2h[0] > d2h[1]:
+        raise AssertionError(f"serve {label}: the artifact copies to the "
+                             f"host {d2h[0]} times a call, the direct call "
+                             f"{d2h[1]}")
+    med = statistics.median(served_ms)
+    q = statistics.quantiles(served_ms, n=4)
+    res = dict(export_s=export_s, mb=mb, load_s=load_s, first_ms=first_ms,
+               ms=med, direct_ms=statistics.median(direct_ms),
+               predict_ms=statistics.median(predict_ms), bitwise=bitwise)
+    print(f"serve {label}, batch {BATCH}: export {export_s:.2f} s, artifact "
+          f"{mb:.1f} MB, load {load_s:.2f} s, first call {first_ms:.3f} ms; "
+          f"loaded program median {med:.3f} ms/call (quartiles {q[0]:.3f} / "
+          f"{q[2]:.3f}, n={len(served_ms)}) -> {BATCH / med * 1e3:.1f} img/s; "
+          f"direct make_infer_fn {res['direct_ms']:.3f} ms; predict (numpy "
+          f"in and out) {res['predict_ms']:.3f} ms; device-to-host copies a "
+          f"call: artifact {d2h[0]}, direct {d2h[1]}; launches {launches}")
+    return engine, launches, res
+
+
+def _serve_clients(engine, images, counters):
+    """The BatchingServer over a symbolic-batch engine (max_batch 64,
+    5 ms delay): SERVE_CLIENTS threads, each submitting its share of
+    SERVE_REQUESTS single images one after another.  Returns (img/s, p50
+    ms, p99 ms, mean device batch, launches)."""
+    import threading
+
+    from odc_tpu_torch.serve import BatchingServer
+
+    per = SERVE_REQUESTS // SERVE_CLIENTS
+    lat, errors = [[] for _ in range(SERVE_CLIENTS)], []
+
+    def client(c, srv):
+        try:
+            for j in range(per):
+                t = time.perf_counter()
+                out = srv.submit(images[(c * per + j) % len(images)]).result(
+                    timeout=300)
+                lat[c].append((time.perf_counter() - t) * 1e3)
+                if out[0].shape != (MAX_KEEP, 4):
+                    raise AssertionError("server: output shape")
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    _zero(counters)
+    with BatchingServer(engine, max_batch=BATCH, max_delay_ms=5) as srv:
+        threads = [threading.Thread(target=client, args=(c, srv))
+                   for c in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+    launches = _read(counters)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"server clients failed: {errors[:1]}")
+    stats = srv.stats
+    if stats["images"] != SERVE_REQUESTS:
+        raise AssertionError(f"server served {stats['images']} images")
+    if (launches["superstem"], launches["nms_suppress"]) != (
+            stats["batches"], stats["batches"]):
+        raise AssertionError(f"server: launches {launches} for "
+                             f"{stats['batches']} device batches")
+    every = sorted(x for c in lat for x in c)
+    p50, p99 = every[len(every) // 2], every[int(0.99 * len(every))]
+    mean_batch = stats["images"] / stats["batches"]
+    img_s = SERVE_REQUESTS / wall
+    print(f"BatchingServer (symbolic-batch bf16 artifact, max_batch {BATCH}, "
+          f"5 ms delay): {SERVE_CLIENTS} clients, {SERVE_REQUESTS} single "
+          f"images in {wall:.3f} s -> {img_s:.1f} img/s; latency p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} ms; {stats['batches']} device "
+          f"batches, mean {mean_batch:.2f} images; launches {launches}")
+    # One full batch, coalesced from single requests, is bit for bit the
+    # engine's own call at that batch.
+    with BatchingServer(engine, max_batch=BATCH, max_delay_ms=2000) as srv:
+        futs = [srv.submit(img) for img in images[:BATCH]]
+        got = [f.result(timeout=300) for f in futs]
+    if srv.stats["batch_sizes"] != [BATCH]:
+        raise AssertionError(f"server: batches {srv.stats['batch_sizes']}")
+    ref = engine.predict(images[:BATCH])
+    for i, outs in enumerate(got):
+        if not all(np.array_equal(g, r[i]) for g, r in zip(outs, ref)):
+            raise AssertionError(f"server: image {i} != the engine's call")
+    print(f"BatchingServer: {BATCH} single requests coalesced into one device "
+          f"batch, every output bitwise the engine's own batch-{BATCH} call")
+    return img_s, p50, p99, mean_batch, launches
+
+
+def _serve_http(engine, images, counters):
+    """The HTTP door over a fixed-batch engine: HTTP_CLIENTS concurrent
+    clients, each POSTing HTTP_POSTS .npy bodies of HTTP_BODY images; the
+    annots must equal ``engine.predict_annots`` of each body.  Returns
+    (img/s, launches)."""
+    import io
+    import threading
+    import urllib.request
+
+    from odc_tpu_torch.serve.httpd import start_http_server
+
+    bodies = []  # (client, first image, .npy bytes)
+    for c in range(HTTP_CLIENTS):
+        for p in range(HTTP_POSTS):
+            at = ((c * HTTP_POSTS + p) * HTTP_BODY) % (len(images) - HTTP_BODY)
+            buf = io.BytesIO()
+            np.save(buf, images[at:at + HTTP_BODY])
+            bodies.append((c, at, buf.getvalue()))
+    answers, errors = [None] * len(bodies), []
+    _zero(counters)
+    httpd, batcher = start_http_server(engine, port=0, max_batch=BATCH,
+                                       max_delay_ms=5)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_port}/predict"
+
+        def client(c):
+            try:
+                for i, (cc, _, body) in enumerate(bodies):
+                    if cc != c:
+                        continue
+                    req = urllib.request.Request(url, data=body,
+                                                 method="POST")
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        answers[i] = json.loads(r.read())
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(HTTP_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+        stats = dict(batcher.stats)
+    finally:
+        httpd.shutdown()
+        batcher.stop()
+    launches = _read(counters)
+    n = HTTP_CLIENTS * HTTP_POSTS * HTTP_BODY
+    if errors or any(a is None for a in answers):
+        raise AssertionError(f"HTTP clients failed: {errors[:1]}")
+    for (_, at, _), answer in zip(bodies, answers):
+        if answer != engine.predict_annots(images[at:at + HTTP_BODY]):
+            raise AssertionError(f"HTTP annots of body at {at} != "
+                                 "engine.predict_annots")
+    img_s = n / wall
+    print(f"HTTP door (fixed batch-{BATCH} bf16 artifact): {HTTP_CLIENTS} "
+          f"clients x {HTTP_POSTS} POSTs of {HTTP_BODY} images = {n} images "
+          f"in {wall:.3f} s -> {img_s:.1f} img/s; {stats['batches']} device "
+          f"batches, mean {stats['images'] / stats['batches']:.2f} images; "
+          f"annots equal engine.predict_annots; launches {launches}")
+    return img_s, launches
+
+
+def _serve_small(label, model, hw, counters, tmp, want):
+    """A small-batch artifact of ``model``: loaded program == direct call
+    at conf 0.9 and 0.0, launches checked.  Returns the launches."""
+    from odc_tpu_torch.ops.detect import make_infer_fn
+    from odc_tpu_torch.serve import export_engine
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    images = torch.randint(0, 256, (SERVE_SMALL_BATCH, *hw, 3), generator=gen,
+                           dtype=torch.uint8).to(DEVICE)
+    _calibrate_bn(model, images, torch.Generator().manual_seed(SEED + 42))
+    engine, export_s, mb, load_s = _export_load(label, lambda: export_engine(
+        model, batch_size=SERVE_SMALL_BATCH, image_hw=hw, max_keep=MAX_KEEP),
+        tmp)
+    direct = make_infer_fn(model, 0.9, 0.5, MAX_KEEP)
+    _zero(counters)
+    got = {conf: engine.forward(images, conf) for conf in (0.9, 0.0)}
+    sync()
+    launches = _read(counters)
+    if launches != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"serve {label}: launches {launches}, want "
+                             f"twice {want}")
+    bitwise = all([_served_equal(f"{label} conf {conf}", out,
+                                 direct(images, conf_thre=conf))
+                   for conf, out in got.items()])
+    print(f"serve {label}, batch {SERVE_SMALL_BATCH}: export {export_s:.2f} "
+          f"s, artifact {mb:.1f} MB, load {load_s:.2f} s; loaded program "
+          f"{'bitwise' if bitwise else 'within rtol 1e-3 of'} the direct "
+          f"call at conf 0.9 and 0.0 (kept at 0.0: "
+          f"{int(got[0.0][-1].sum())}); launches {launches}")
+    return launches
+
+
+def phase_serve(model, scales, counters):
+    """Serving from exported artifacts on the card: the YOLOv2-416 model of
+    phase_e2e (and phase_int8_e2e's ranges) exported, saved, loaded and
+    served at batch 64 in bf16 and int8_full (s2d); a symbolic-batch bf16
+    artifact behind the BatchingServer; the HTTP door; YOLOv1-224 and
+    YOLOv3-416 (int8_dynamic) artifacts at batch 8.  Every artifact is
+    written into a temporary directory and deleted once loaded.  Returns
+    the launches of the served calls by kernel and the numbers."""
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.serve import export_engine
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 40)
+    host = torch.randint(0, 256, (4 * BATCH, *HW, 3), generator=gen,
+                         dtype=torch.uint8).numpy()
+    images = torch.from_numpy(host[:BATCH]).to(DEVICE)
+    zero = dict.fromkeys(["int8_matmul", "nms_suppress", "superstem",
+                          "wgmma"], 0)
+    served, res = {}, {}
+    launcher_us, op_us, wrapper_us = _hop_us()
+    res["hop_us"] = op_us - launcher_us
+    print(f"custom-op hop, host time a call (NMS at B={BATCH}, K={MAX_KEEP}, "
+          f"2000 calls, median of 3): launcher {launcher_us:.2f} us, operator "
+          f"{op_us:.2f} us, wrapper {wrapper_us:.2f} us -> the operator adds "
+          f"{op_us - launcher_us:.2f} us a launch")
+    with tempfile.TemporaryDirectory() as tmp:
+        fixed, launches, res["bf16"] = _serve_batch(
+            "YOLOv2-416 bf16", model, images, counters, tmp,
+            {**zero, "superstem": 1, "nms_suppress": 1})
+        _add(served, launches)
+        int8, launches, res["int8"] = _serve_batch(
+            "YOLOv2-416 int8_full s2d", model, images, counters, tmp,
+            {**zero, "int8_matmul": 20, "wgmma": 20, "nms_suppress": 1},
+            int8_scales=scales, int8_stem="s2d")
+        _add(served, launches)
+        del int8
+        sym, export_s, mb, load_s = _export_load("sym", lambda: export_engine(
+            model, batch_size=None, image_hw=HW, max_keep=MAX_KEEP), tmp)
+        print(f"serve YOLOv2-416 bf16 symbolic batch: export {export_s:.2f} "
+              f"s, artifact {mb:.1f} MB, load {load_s:.2f} s")
+        for b in (1, 2, 4, 8, 16, 32, 64):  # the server's bucket ladder
+            sym.forward(images[:b])
+        sync()
+        img_s, p50, p99, mean_batch, launches = _serve_clients(
+            sym, host, counters)
+        res["server"] = dict(img_s=img_s, p50_ms=p50, p99_ms=p99,
+                             mean_batch=mean_batch)
+        _add(served, launches)
+        del sym
+        res["http"], launches = _serve_http(fixed, host, counters)
+        _add(served, launches)
+        del fixed
+        torch.cuda.empty_cache()
+        v1 = get_model("YOLOv1", dtype=torch.bfloat16, device=DEVICE,
+                       seed=SEED, **_v1_kwargs(V1_HW)).eval()
+        _add(served, _serve_small("YOLOv1-224 bf16", v1, V1_HW, counters, tmp,
+                                  {**zero, "nms_suppress": 1}))
+        del v1
+        torch.cuda.empty_cache()
+        v3 = get_model("YOLOv3", dtype=torch.bfloat16, device=DEVICE,
+                       seed=SEED, image_size=V3_HW, int8_dynamic=True).eval()
+        _add(served, _serve_small(
+            "YOLOv3-416 int8_dynamic", v3, V3_HW, counters, tmp,
+            {**zero, "int8_matmul": V3_INT8_LAYERS, "wgmma": V3_INT8_LAYERS,
+             "nms_suppress": 1}))
+        del v3
+    torch.cuda.empty_cache()
+    print(f"phase serve took {time.perf_counter() - t0:.1f} s; served "
+          f"launches {served}")
+    return served, res
+
+
 def phase_eval(model, scales, counters):
     """Both evaluators end to end on 64 synthetic VOC val JPEGs at three
     sizes, host decode included: ``evaluate_batched`` (416x416, batch 64)
@@ -2910,6 +3359,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     native = phase_native(model, scales, counters)
     phase_eval(model, scales, counters)
+    served, serve_res = phase_serve(model, scales, counters)
     del model, scales
     torch.cuda.empty_cache()
     every = {"int8_matmul": matmul, "nms_suppress": suppress,
@@ -2935,23 +3385,27 @@ def main() -> int:
           f"serving {v1_launches}, YOLOv1 training {v1_train_launches}, "
           f"YOLOv3 serving bf16 {v3_launches}, int8_dynamic {v3_launches8}, "
           f"YOLOv3 training {v3_train_launches}")
+    print(f"launches of the served artifacts (phase serve): {served}")
     # Each kernel's launches are those of the main paths that run it (the
-    # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths; the warp: the
-    # three training paths and the QAT fine-tune; the GEMM: the YOLOv2 int8
-    # engine, the QAT fine-tune and YOLOv3 int8_dynamic); the GEMM's times
-    # are sums over the 20 GEMMs of one YOLOv2 int8 call (the 32 of a
-    # YOLOv3 call are printed above).
+    # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths, and every served
+    # artifact; the superstem: YOLOv2 bf16 serving, direct and from
+    # artifacts; the warp: the three training paths and the QAT fine-tune;
+    # the GEMM: the YOLOv2 int8 engine, the QAT fine-tune, YOLOv3
+    # int8_dynamic and their artifacts); the GEMM's times are sums over the
+    # 20 GEMMs of one YOLOv2 int8 call (the 32 of a YOLOv3 call are printed
+    # above).
     kernels = [
         dict(name="nms_suppress", route="cuda",
              source="odc_tpu_torch/csrc/nms_suppress.cu",
              replaces="odc_tpu/ops/pallas/nms_kernel.py:100",
              launches=(launches["nms_suppress"] + v1_launches["nms_suppress"]
                        + v3_launches["nms_suppress"]
-                       + v3_launches8["nms_suppress"]), **nms),
+                       + v3_launches8["nms_suppress"]
+                       + served["nms_suppress"]), **nms),
         dict(name="superstem", route="cuda",
              source="odc_tpu_torch/csrc/superstem.cu",
              replaces="odc_tpu/ops/pallas/superstem_kernel.py:270",
-             launches=launches["superstem"], **stem),
+             launches=launches["superstem"] + served["superstem"], **stem),
         dict(name="warp_affine", route="cuda",
              source="odc_tpu_torch/csrc/warp_affine.cu",
              replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
@@ -2965,12 +3419,14 @@ def main() -> int:
              **{**mm, "launches_by_route": {
                  "wgmma": (mm["launches_by_route"]["wgmma"]
                            + qat_routes["wgmma"]
-                           + v3_launches8["int8_matmul"]),
+                           + v3_launches8["int8_matmul"]
+                           + served["wgmma"]),
                  "mma_sync": (mm["launches_by_route"]["mma_sync"]
                               + qat_routes["mma_sync"])}},
              launches=(int8_launches["int8_matmul"]
                        + qat_launches["int8_matmul"]
-                       + v3_launches8["int8_matmul"])),
+                       + v3_launches8["int8_matmul"]
+                       + served["int8_matmul"])),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
           f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "
@@ -2979,7 +3435,8 @@ def main() -> int:
           f"{v1_img_s:.1f} img/s, train {v1_train_img_s:.1f} img/s; YOLOv3 "
           f"e2e bf16 {v3_img_s:.1f} img/s, int8_dynamic {v3_img_s8:.1f} "
           f"img/s (its 32 GEMMs {v3_gemm['ms']:.3f} ms a call, _int_mm "
-          f"{v3_gemm['library_ms']:.3f}), train {v3_train_img_s:.1f} img/s")
+          f"{v3_gemm['library_ms']:.3f}), train {v3_train_img_s:.1f} img/s; "
+          f"served {json.dumps(serve_res)}")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,11 @@ inference, evaluation and training; YOLOv3 (Darknet-53 and the FPN,
 ``models/yolov3.py``) for inference in bf16 and with ``int8_dynamic``,
 evaluation and training (``losses/yolov3_loss.py``); quantization-aware
 fine-tuning of YOLOv2 against the int8 engine (``ops/qat.py``,
-``train/qat.py``, ``--qat``), and the reader of the JAX package's
-checkpoints (``train/checkpoint.py``).
+``train/qat.py``, ``--qat``), the reader of the JAX package's
+checkpoints (``train/checkpoint.py``), and serving: the exported engine
+artifact, the micro-batching server, the HTTP door and the export command
+line (``serve/``, ``python -m odc_tpu_torch.serve``), with the kernels as
+PyTorch operators (``ops/cuda/ops.py``).
 
 Entry points (model constructors, the training command line) default to
 ``device="cuda"`` and raise when no card is present; the CPU runs only when

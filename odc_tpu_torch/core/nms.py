@@ -71,7 +71,10 @@ def nms_padded(
         boxes: [B, ..., 4] corner-format boxes (per-image dims flattened).
         conf: [B, ...] confidences; ``conf < conf_thre`` drops a box.
         cls_scores: [B, ..., C] class-specific scores.
-        conf_thre, iou_thre: runtime thresholds.
+        conf_thre, iou_thre: runtime thresholds, floats or 0-d float32
+            CPU tensors (an exported program's inputs: a CPU scalar enters
+            elementwise ops on the card as a scalar, and the NMS operator
+            reads ``iou_thre`` on the host, so neither waits on the card).
         max_keep: the static candidate budget per image.
         suppress_boxes: optional [B, ..., 4] boxes for the overlap test in
             place of ``boxes`` (class-wise NMS passes class-offset boxes).

@@ -16,18 +16,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-def imagenet_normalize(
-    x: torch.Tensor, dtype: torch.dtype = torch.float32
-) -> torch.Tensor:
-    """uint8/float RGB [N, H, W, 3] -> normalized, staying NHWC."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    x = (x.float() / 255.0 - mean) / std
-    return x.to(dtype)
+from odc_tpu_torch.core.image import (  # noqa: F401  (re-exported)
+    IMAGENET_MEAN, IMAGENET_STD, imagenet_normalize,
+)
 
 
 class TorchBatchNorm(nn.Module):

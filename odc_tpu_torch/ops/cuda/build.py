@@ -17,6 +17,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
 from typing import Dict, List, Optional
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -64,6 +65,9 @@ _BASE_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# A serving worker thread may launch the first kernel while another thread
+# does too: one builds and loads, the other waits.
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -148,17 +152,22 @@ def build_all(
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if missing or stale."""
+    """The kernel library ``name``, built first if missing or stale.
+    Thread-safe."""
     lib = _loaded.get(name)
-    if lib is None:
-        if not _fresh(name):
-            build_all([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            if not _fresh(name):
+                build_all([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _loaded[name] = lib
     return lib
 
 

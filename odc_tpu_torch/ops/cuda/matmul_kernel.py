@@ -39,7 +39,7 @@ from odc_tpu_torch.ops.cuda import build
 # Longest contraction the int32 sums provably hold: 128 * 127 * K < 2**31.
 MAX_K = 131072
 _LAUNCHERS = {torch.int8: "matmul_s8s8s32", torch.bfloat16: "matmul_bf16bf16f32"}
-_OUT = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
+OUT_DTYPE = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
 ROUTES = ("wgmma", "mma_sync")
 
 
@@ -68,7 +68,7 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _launch(a: torch.Tensor, b: torch.Tensor, path: str) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=_OUT[a.dtype], device=a.device)
+    out = torch.empty((m, n), dtype=OUT_DTYPE[a.dtype], device=a.device)
     if out.numel() == 0:
         return out
     if k == 0:
@@ -97,8 +97,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     """``a [M, K] @ b [K, N]``: int8 -> int32 (exact) or bf16 -> f32.
 
     ``a`` must be contiguous and ``b`` the transpose of a contiguous
-    ``[N, K]`` tensor.  A CPU tensor runs :func:`matmul_plain`; a CUDA
-    tensor launches the kernel on the route :func:`route` picks, or raises.
+    ``[N, K]`` tensor.  Calls the operator ``odc_tpu_torch::int8_matmul``
+    (``ops.py``): a CPU tensor runs :func:`matmul_plain`; a CUDA tensor
+    launches the kernel on the route :func:`route` picks, or raises.
     ``path="mma_sync"`` asks for the older route on any input (to compare
     the two on the card); ``path="wgmma"`` only where :func:`route` allows
     it."""
@@ -118,16 +119,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     if not (a.is_contiguous() and b.t().is_contiguous()):
         raise ValueError("a must be contiguous and b the transpose of a "
                          "contiguous [N, K] tensor (b = bt.t())")
-    m, k = a.shape
-    picked = route(m, b.shape[1], k, a.dtype, a, b)
-    if path not in (None, "mma_sync", picked):
-        raise ValueError(f"route {path!r} cannot take this input (route() "
-                         f"picks {picked!r})")
-    if a.device.type == "cpu":
-        return matmul_plain(a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a.device}")
-    return _launch(a, b, path or picked)
+    if path not in (None,) + ROUTES:
+        raise ValueError(f"route {path!r} cannot take this input (routes: "
+                         f"{ROUTES})")
+    return torch.ops.odc_tpu_torch.int8_matmul(a, b, path)
 
 
 matmul.launches = 0

@@ -55,33 +55,34 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thre: float):
     return keep
 
 
-def suppress(
-    boxes: torch.Tensor, valid: torch.Tensor, iou_thre: float
-) -> torch.Tensor:
+def suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_thre) -> torch.Tensor:
     """Keep mask over score-sorted candidates (see :func:`suppress_plain`).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (one CTA per image, K <= 1024) or raises.  Boxes must start on a
-    16-byte boundary, as the kernel reads each box as one 16-byte load."""
+    Calls the operator ``odc_tpu_torch::nms_suppress`` (``ops.py``): a CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel (one
+    CTA per image, K <= 1024) or raises.  Boxes must start on a 16-byte
+    boundary, as the kernel reads each box as one 16-byte load.
+    ``iou_thre`` is a float or a 0-d float32 CPU tensor (a runtime input of
+    a captured program)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [B, K, 4], got {tuple(boxes.shape)}")
     if valid.shape != boxes.shape[:2] or valid.dtype != torch.bool:
         raise ValueError("valid must be a [B, K] bool tensor")
     if boxes.dtype != torch.float32:
         raise TypeError(f"boxes must be float32, got {boxes.dtype}")
-    if boxes.data_ptr() % 16:
-        raise ValueError("boxes must start on a 16-byte boundary")
     if valid.device != boxes.device:
         raise ValueError("boxes and valid must be on the same device")
-    if boxes.device.type == "cpu":
-        return suppress_plain(boxes, valid, iou_thre)
-    if boxes.device.type != "cuda":
+    if boxes.device.type == "cuda":
+        if boxes.shape[1] > MAX_K:
+            raise ValueError(
+                f"K={boxes.shape[1]} exceeds the kernel's {MAX_K}")
+        if not (boxes.is_contiguous() and valid.is_contiguous()):
+            raise ValueError("boxes and valid must be contiguous")
+    elif boxes.device.type != "cpu":
         raise ValueError(f"unsupported device {boxes.device}")
-    if boxes.shape[1] > MAX_K:
-        raise ValueError(f"K={boxes.shape[1]} exceeds the kernel's {MAX_K}")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("boxes and valid must be contiguous")
-    return _launch(boxes, valid, iou_thre)
+    if not isinstance(iou_thre, torch.Tensor):
+        iou_thre = torch.tensor(float(iou_thre), dtype=torch.float32)
+    return torch.ops.odc_tpu_torch.nms_suppress(boxes, valid, iou_thre)
 
 
 suppress.launches = 0

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from odc_tpu_torch.models.layers import imagenet_normalize
+from odc_tpu_torch.core.image import imagenet_normalize
 from odc_tpu_torch.ops.cuda import build
 
 _LAUNCHERS = {torch.bfloat16: "superstem_bf16", torch.float32: "superstem_f32"}
@@ -104,8 +104,9 @@ def superstem(
     """[B, H, W, 3] uint8 -> [B, H/4, W/4, 64] (floor pooling) in the
     weights' dtype, with weights from :func:`fold_weights`.
 
-    A CPU tensor runs :func:`superstem_plain`; a CUDA tensor launches the
-    kernel or raises."""
+    Calls the operator ``odc_tpu_torch::superstem`` (``ops.py``): a CPU
+    tensor runs :func:`superstem_plain`; a CUDA tensor launches the kernel
+    or raises."""
     if x_u8.dim() != 4 or x_u8.shape[-1] != 3 or x_u8.dtype != torch.uint8:
         raise ValueError("x must be a [B, H, W, 3] uint8 tensor")
     if x_u8.shape[1] < 4 or x_u8.shape[2] < 4:
@@ -116,13 +117,13 @@ def superstem(
         raise TypeError(f"weights must both be bf16 or f32, got {w1.dtype}")
     if not (w1.device == w2.device == x_u8.device):
         raise ValueError("x, w1 and w2 must be on the same device")
-    if x_u8.device.type == "cpu":
-        return superstem_plain(x_u8, w1, w2)
-    if x_u8.device.type != "cuda":
+    if x_u8.device.type == "cuda":
+        if not (x_u8.is_contiguous() and w1.is_contiguous()
+                and w2.is_contiguous()):
+            raise ValueError("x, w1 and w2 must be contiguous")
+    elif x_u8.device.type != "cpu":
         raise ValueError(f"unsupported device {x_u8.device}")
-    if not (x_u8.is_contiguous() and w1.is_contiguous() and w2.is_contiguous()):
-        raise ValueError("x, w1 and w2 must be contiguous")
-    return _launch(x_u8, w1, w2)
+    return torch.ops.odc_tpu_torch.superstem(x_u8, w1, w2)
 
 
 superstem.launches = 0

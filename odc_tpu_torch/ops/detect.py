@@ -70,7 +70,9 @@ def make_infer_fn(
     ``(boxes [B, max_keep, 4], conf [B, max_keep], cls_scores
     [B, max_keep, C], keep [B, max_keep])``, or with ``compact``
     ``(boxes, conf, labels int32, label_scores, keep)``.  The thresholds
-    are runtime arguments; ``max_keep`` is fixed.  ``class_wise`` runs
+    are runtime arguments, floats or 0-d float32 CPU tensors (what
+    ``serve/engine.py`` passes, so ``torch.export`` keeps them as inputs);
+    ``max_keep`` is fixed.  ``class_wise`` runs
     per-class suppression.  The model is put in eval mode and a YOLOv2's
     stem weights are folded now: later weight changes need a new function.
 

@@ -6,7 +6,8 @@ Port of ``odc_tpu/train/checkpoint.py``: the same file layout
 ``torch.save`` as CPU tensors and read back with
 ``torch.load(weights_only=True)``.
 
-:func:`restore` also reads the JAX package's checkpoints, without flax and
+:func:`restore` and :func:`restore_params` also read the JAX package's
+checkpoints and params-only files, without flax and
 without the ``msgpack`` package: flax's ``to_bytes`` of a ``TrainState``,
 msgpack maps whose leaves are ndarrays as ext type 1 (a nested msgpack
 ``(shape, dtype name, buffer)``), numpy scalars as ext type 3, and arrays
@@ -76,8 +77,27 @@ def save_params(path: str, params: Dict[str, torch.Tensor]) -> None:
 
 def restore_params(path: str, template: Dict[str, torch.Tensor]):
     """Read a params-only checkpoint; names and shapes must match
-    ``template``, whose devices and dtypes the result takes."""
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    ``template``, whose devices and dtypes the result takes.
+
+    ``path`` is a file of :func:`save_params` or the JAX package's
+    params-only file (``odc_tpu/train/checkpoint.py::save_params``: flax
+    msgpack of a YOLOv1, YOLOv2 or YOLOv3 ``params`` tree, which holds no
+    BN statistics), read in the port's parameter names
+    (``models/convert_jax.py::params_from_jax``); any other file raises
+    ``ValueError``."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head == b"PK":
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
+    elif head and _is_msgpack_map(head[0]):
+        from odc_tpu_torch.models.convert_jax import params_from_jax
+
+        loaded = params_from_jax(read_flax_msgpack(path))
+    else:
+        raise ValueError(
+            f"{path}: neither a params file of this package (a torch zip "
+            "archive, 'PK') nor one of the JAX package (a flax msgpack map)"
+        )
     if sorted(loaded) != sorted(template):
         raise KeyError("checkpoint names differ from the template's")
     out = {}

@@ -218,6 +218,29 @@ def test_foreign_file_is_refused(tmp_path, content):
         checkpoint.restore(str(path), TrainState(_v1(0)))
 
 
+@pytest.mark.parametrize("name", ["YOLOv2", "YOLOv1"])
+def test_reads_a_jax_params_only_file_bitwise(name, ckpt_dir):
+    """A params-only file of the JAX package (``save_params``: flax msgpack
+    of the ``params`` tree, no BN statistics) restores into the port's
+    parameter names bit for bit; a template with other names, or a foreign
+    file, is refused."""
+    state = _state(_MODELS[name])
+    named = dict(state.model.named_parameters())
+    tree = jax_from_train_state(state.state_dict())
+    jckpt.save_params(str(ckpt_dir / "params.ckpt"), tree["params"])
+    other = dict(_MODELS[name](9).named_parameters())
+    loaded = checkpoint.restore_params(str(ckpt_dir / "params.ckpt"), other)
+    assert sorted(loaded) == sorted(named)
+    for k, v in named.items():
+        assert torch.equal(loaded[k], v), k
+    with pytest.raises(KeyError):
+        checkpoint.restore_params(str(ckpt_dir / "params.ckpt"),
+                                  dict(state.model.state_dict()))
+    (ckpt_dir / "foreign.ckpt").write_bytes(b"hello")
+    with pytest.raises(ValueError, match="neither"):
+        checkpoint.restore_params(str(ckpt_dir / "foreign.ckpt"), other)
+
+
 @pytest.mark.parametrize("flag", ["--resume", "--qat"])
 def test_cli_takes_a_jax_checkpoint(flag, ckpt_dir, monkeypatch):
     """``--resume`` and ``--qat`` with a JAX package checkpoint of the

@@ -1,0 +1,353 @@
+"""The port's serving engine (``odc_tpu_torch/serve/engine.py``, the export
+command line, the kernels as operators) on the CPU at 64x64, against the
+port's direct call and against the JAX package's ``odc_tpu/serve``.
+
+Each configuration is exported once (module fixtures) and kept in memory:
+an artifact holds the full-width f32 weights (about 270 MB for YOLOv2).
+Only the command-line test writes a file, in a folder emptied at teardown.
+"""
+
+import io
+import json
+import pathlib
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import torch
+
+from odc_tpu.serve import export_engine as jax_export_engine
+from odc_tpu.serve import load_engine as jax_load_engine
+from odc_tpu.train import checkpoint as jckpt
+from odc_tpu_torch.models import YOLOv1, YOLOv2, YOLOv3
+from odc_tpu_torch.models.convert_jax import jax_params_from
+from odc_tpu_torch.ops.cuda import ops
+from odc_tpu_torch.ops.detect import make_infer_fn
+from odc_tpu_torch.ops.int8_engine import calibrate
+from odc_tpu_torch.serve import export_engine, load_engine
+from odc_tpu_torch.serve import __main__ as serve_cli
+from odc_tpu_torch.serve.engine import _annot_of
+from torch_port_helpers import calibrated_yolov2, gap_threshold, port_model
+
+HW = (64, 64)
+MAX_KEEP = 16
+IMAGES = np.random.default_rng(0).integers(0, 255, (3,) + HW + (3,),
+                                           dtype=np.uint8)
+
+
+def _v1():
+    return YOLOv1(num_grid_cell_in_height=2, num_grid_cell_in_width=2,
+                  image_size=HW, dtype=torch.bfloat16, device="cpu", seed=1)
+
+
+# name -> (model constructor, export_engine keywords, make_infer_fn keywords,
+# operator launches the program holds: superstem, nms_suppress,
+# int8_matmul).  YOLOv1 bakes bf16 weights (``weights_dtype``); its direct
+# call runs the same cast copy.
+_CONFIGS = {
+    "yolov2-bf16": (lambda: YOLOv2(dtype=torch.bfloat16, device="cpu",
+                                   image_size=HW),
+                    dict(batch_size=2), {}, (1, 1, 0)),
+    "yolov2-compact-symbolic": (
+        lambda: YOLOv2(dtype=torch.bfloat16, device="cpu", image_size=HW,
+                       seed=2),
+        dict(batch_size=None, compact=True), dict(compact=True), (1, 1, 0)),
+    "yolov1": (_v1, dict(batch_size=2, weights_dtype=torch.bfloat16), {},
+               (0, 1, 0)),
+    "yolov3-int8_dynamic": (
+        lambda: YOLOv3(dtype=torch.bfloat16, device="cpu", image_size=HW,
+                       int8_dynamic=True),
+        dict(batch_size=1), {}, (0, 1, 32)),
+}
+
+
+@pytest.fixture(scope="module")
+def artifacts():
+    """``artifacts(name)``: (model, artifact bytes, loaded engine, direct
+    call) of configuration ``name``, exported on first use and kept until
+    the module ends."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            make, export_kw, infer_kw, _ = _CONFIGS[name]
+            model = make()
+            data = export_engine(model, image_hw=HW, conf_thre=0.0,
+                                 max_keep=MAX_KEEP, device="cpu", **export_kw)
+            if "weights_dtype" in export_kw:
+                model = model.to(export_kw["weights_dtype"])
+            direct = make_infer_fn(model, 0.0, 0.5, MAX_KEEP, **infer_kw)
+            cache[name] = (model, data, load_engine(data, "cpu"), direct)
+        return cache[name]
+
+    yield get
+    cache.clear()
+
+
+def _direct(direct, images, conf=0.0):
+    return [o.numpy() for o in direct(torch.from_numpy(images), conf, 0.5)]
+
+
+def _operator_counts(engine):
+    names = [str(n.target) for m in engine.program.graph_module.modules()
+             if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes]
+    return tuple(names.count(f"odc_tpu_torch.{op}.default")
+                 for op in ("superstem", "nms_suppress", "int8_matmul"))
+
+
+@pytest.mark.parametrize("name", list(_CONFIGS))
+def test_round_trip_is_bitwise_the_direct_call(name, artifacts):
+    """The loaded artifact gives the direct ``make_infer_fn`` call's outputs
+    bit for bit (a symbolic batch at two sizes), and the program holds the
+    kernels as opaque operators (superstem, NMS, int8 GEMM) as often as the
+    direct call launches them."""
+    _, _, engine, direct = artifacts(name)
+    for n in (engine.batch_size,) if engine.batch_size else (1, 3):
+        got = engine.predict(IMAGES[:n])
+        ref = _direct(direct, IMAGES[:n])
+        assert len(got) == len(ref) == len(engine.manifest["outputs"])
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert g.shape[0] == n
+            np.testing.assert_array_equal(g, r)
+        assert got[-1].any()
+    assert _operator_counts(engine) == _CONFIGS[name][3]
+
+
+@pytest.fixture(scope="module")
+def v2_fixed(artifacts):
+    """The YOLOv2 bf16 artifact at batch 2: (bytes, engine)."""
+    _, data, engine, _ = artifacts("yolov2-bf16")
+    return data, engine
+
+
+def test_padding_and_input_validation(v2_fixed):
+    _, eng = v2_fixed
+    one = eng.predict(IMAGES[:1])
+    full = eng.predict(IMAGES[:2])
+    for a, b in zip(one, full):
+        assert a.shape[0] == 1
+        np.testing.assert_array_equal(a[0], b[0])
+    for bad in (IMAGES, IMAGES[:1, :32], IMAGES[:1].astype(np.float32),
+                IMAGES[0], IMAGES[:0]):
+        with pytest.raises(ValueError):
+            eng.predict(bad)
+
+
+def test_thresholds_are_runtime_inputs(v2_fixed):
+    """One artifact serves every operating point: a higher conf keeps a
+    subset, and an IoU threshold of 1 suppresses nothing that 0.5 keeps."""
+    _, eng = v2_fixed
+    keep = {c: eng.predict(IMAGES[:2], conf_thre=c)[-1] for c in (0.0, 0.5)}
+    assert keep[0.5].sum() < keep[0.0].sum()
+    assert eng.predict(IMAGES[:2], iou_thre=1.0)[-1].sum() >= keep[0.0].sum()
+    default = eng.predict(IMAGES[:2])  # the manifest's conf 0.0
+    np.testing.assert_array_equal(default[-1], keep[0.0])
+
+
+@pytest.mark.parametrize("name", ["yolov2-bf16", "yolov2-compact-symbolic"])
+def test_predict_annots_contract(name, artifacts):
+    engine = artifacts(name)[2]
+    annots = engine.predict_annots(IMAGES[:2])
+    outs = engine.predict(IMAGES[:2])
+    assert len(annots) == 2
+    for i, a in enumerate(annots):
+        assert a == _annot_of(engine.manifest, tuple(o[i] for o in outs))
+        assert set(a) == {"bbox_list", "lbl_list", "conf_score_list",
+                          "cls_spec_conf_score_list"}
+        n = len(a["bbox_list"])
+        assert n == int(outs[-1][i].sum()) > 0
+        assert (len(a["lbl_list"]) == len(a["conf_score_list"])
+                == len(a["cls_spec_conf_score_list"]) == n)
+        assert all(lbl in engine.manifest["cls_list"] for lbl in a["lbl_list"])
+        assert all(len(b) == 4 for b in a["bbox_list"])
+
+
+@pytest.fixture(scope="module")
+def jax_pair():
+    """A calibrated f32 YOLOv2 of the JAX package and its bridged port
+    copy, each exported and loaded by its own package, at a conf threshold
+    in the largest gap of the port's candidate confidences."""
+    images = IMAGES[:2]
+    jmodel, variables = calibrated_yolov2(images)
+    model = port_model(variables)
+    with torch.no_grad():
+        conf = model.decode(model(torch.from_numpy(images)), HW).conf.numpy()
+    thre = gap_threshold(conf, 2, 30)
+    port = load_engine(export_engine(
+        model, batch_size=2, image_hw=HW, conf_thre=thre, max_keep=MAX_KEEP,
+        device="cpu"), "cpu")
+    jdata = jax_export_engine(jmodel, variables, batch_size=2, image_hw=HW,
+                              conf_thre=thre, max_keep=MAX_KEEP)
+    return images, port, jdata, jax_load_engine(jdata)
+
+
+def test_served_annots_match_the_jax_package(jax_pair):
+    """Both packages' ``load_engine(export_engine(...)).predict_annots`` on
+    the same bridged weights (f32 compute, the non-int8 "bf16" artifact of
+    both packages; in bf16 the two frameworks round at other places): the
+    same labels and counts, boxes within 1e-4 of the largest coordinate
+    (the tolerance ROADMAP Queue 3 records for ``decode_v2`` and the
+    forward) and confidences and class scores within 1e-4
+    (``test_torch_detect.py``'s for the direct call; measured 3.1e-5).  The int8 artifact is held bitwise to
+    the port's direct call (``test_cli_int8_params_only_export``), which
+    ``test_torch_int8_engine.py::test_infer_int8_scales_matches_jax`` holds
+    against the eager JAX engine."""
+    images, port, _, jax_engine = jax_pair
+    got = port.predict_annots(images)
+    ref = jax_engine.predict_annots(images)
+    assert sum(len(a["lbl_list"]) for a in ref) > 0
+    for g, r in zip(got, ref):
+        assert g["lbl_list"] == r["lbl_list"]
+        assert 0 < len(g["bbox_list"]) == len(r["bbox_list"])
+        rb = np.asarray(r["bbox_list"])
+        np.testing.assert_allclose(g["bbox_list"], rb, rtol=0,
+                                   atol=1e-4 * np.abs(rb).max())
+        for key in ("conf_score_list", "cls_spec_conf_score_list"):
+            np.testing.assert_allclose(g[key], r[key], rtol=0, atol=1e-4)
+
+
+def test_manifest_fields(v2_fixed, jax_pair):
+    """The JAX package's manifest keys, ``torch_version`` for
+    ``jax_version``; ``platforms`` names the program's device type."""
+    _, eng = v2_fixed
+    m = eng.manifest
+    jax_keys = set(jax_pair[3].manifest)
+    assert set(m) == (jax_keys - {"jax_version"}) | {"torch_version"}
+    assert m["format_version"] == 1 and m["model"] == "YOLOv2"
+    assert m["batch_size"] == 2 and m["image_hw"] == list(HW)
+    assert m["max_keep"] == MAX_KEEP and len(m["cls_list"]) == 20
+    assert m["cls_list"] == jax_pair[3].manifest["cls_list"]
+    assert m["precision"] == "bf16" and m["int8_stem"] is None
+    assert m["platforms"] == ["cpu"] and m["weights_dtype"] == "checkpoint"
+    assert m["torch_version"] == torch.__version__
+    assert m["outputs"] == ["boxes", "conf", "cls_scores", "keep"]
+    assert jax_pair[1].manifest["precision"] == "f32"
+
+
+def _with_manifest(data, **changes):
+    mlen = struct.unpack("<I", data[5:9])[0]
+    m = json.loads(data[9:9 + mlen])
+    m.update(changes)
+    mb = json.dumps(m).encode()
+    return data[:5] + struct.pack("<I", len(mb)) + mb + data[9 + mlen:]
+
+
+def test_load_engine_refusals(v2_fixed, jax_pair):
+    data, _ = v2_fixed
+    with pytest.raises(ValueError, match="bad magic"):
+        load_engine(b"not an engine blob", "cpu")
+    with pytest.raises(ValueError, match="newer"):
+        load_engine(data[:4] + bytes([2]) + data[5:], "cpu")
+    with pytest.raises(ValueError, match="JAX package"):
+        load_engine(jax_pair[2], "cpu")
+    with pytest.raises(ValueError, match="cannot run on"):
+        load_engine(_with_manifest(data, platforms=["cuda"]), "cpu")
+    with pytest.raises(ValueError, match="cannot run on"):
+        load_engine(data, "cuda")
+    with pytest.raises(ValueError, match="YOLOv2-only"):
+        export_engine(_v1(), batch_size=2, image_hw=HW,
+                      int8_scales=np.ones((22, 2), np.float32))
+
+
+def test_loaded_artifact_needs_no_model_code(v2_fixed):
+    """A fresh process loads the artifact (handed over on stdin) and
+    predicts with the package's serving module alone: no model code, no
+    JAX.  Its outputs equal this process's bit for bit."""
+    data, eng = v2_fixed
+    child = (
+        "import io, sys, numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from odc_tpu_torch.serve.engine import load_engine\n"
+        "eng = load_engine(sys.stdin.buffer.read(), 'cpu')\n"
+        "images = np.random.default_rng(0).integers("
+        "0, 255, (3, 64, 64, 3), dtype=np.uint8)\n"
+        "outs = eng.predict(images[:2])\n"
+        "bad = [m for m in ('odc_tpu_torch.models', 'odc_tpu', 'jax', "
+        "'flax') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "buf = io.BytesIO(); np.savez(buf, *outs)\n"
+        "sys.stdout.buffer.write(buf.getvalue())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", child], input=data,
+                          capture_output=True, timeout=600,
+                          cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+    got = np.load(io.BytesIO(proc.stdout))
+    for i, ref in enumerate(eng.predict(IMAGES[:2])):
+        np.testing.assert_array_equal(got[f"arr_{i}"], ref)
+
+
+@pytest.fixture
+def out_dir(tmp_path):
+    """A folder whose artifacts and checkpoints are removed afterwards,
+    passed or failed."""
+    yield tmp_path
+    for path in tmp_path.iterdir():
+        path.unlink()
+
+
+def test_cli_int8_params_only_export(out_dir):
+    """``python -m odc_tpu_torch.serve --int8 --scales --params-only`` on a
+    JAX package params-only file (``odc_tpu.train.checkpoint.save_params``):
+    the artifact bakes the given ranges (no recalibration) and is bit for
+    bit the direct ``make_infer_fn(int8_scales=...)`` call on a model with
+    those parameters; its program holds 20 int8 GEMMs and one NMS."""
+    args = ["--model", "YOLOv2", "--ckpt", str(out_dir / "params.msgpack"),
+            "--params-only", "--out", str(out_dir / "m.odce"),
+            "--image-size", "64", "--batch-size", "2", "--max-keep", "8",
+            "--conf-thre", "0.0", "--int8", "--scales",
+            str(out_dir / "int8_scales.npy"), "--device", "cpu"]
+    model = serve_cli.build_model(serve_cli.parse_args(args), 64)
+    with torch.no_grad():  # parameters the command line's init lacks
+        for p in model.parameters():
+            p.mul_(1.5)
+    jckpt.save_params(str(out_dir / "params.msgpack"),
+                      jax_params_from(dict(model.named_parameters())))
+    with torch.no_grad():
+        scales = calibrate(model.eval(), torch.from_numpy(IMAGES)).numpy()
+    np.save(out_dir / "int8_scales.npy", scales)
+    serve_cli.main(args)
+
+    eng = load_engine(str(out_dir / "m.odce"), "cpu")
+    assert eng.manifest["precision"] == "int8_full"
+    assert eng.manifest["int8_stem"] == "s2d"
+    assert _operator_counts(eng) == (0, 1, 20)
+    direct = make_infer_fn(model, 0.0, 0.5, 8, int8_scales=scales)
+    got = eng.predict(IMAGES[:2])
+    assert got[-1].any()
+    for g, r in zip(got, _direct(direct, IMAGES[:2])):
+        np.testing.assert_array_equal(g, r)
+
+
+def _opcheck_args():
+    gen = torch.Generator().manual_seed(0)
+    boxes = torch.rand(2, 16, 4, generator=gen)
+    boxes[..., 2:] += boxes[..., :2]
+    return {
+        "nms_suppress": (ops.nms_suppress, (
+            boxes, torch.rand(2, 16, generator=gen) > 0.3,
+            torch.tensor(0.5))),
+        "superstem": (ops.superstem, (
+            torch.randint(0, 255, (2, 8, 12, 3), dtype=torch.uint8,
+                          generator=gen),
+            torch.randn(32, 28, generator=gen).to(torch.bfloat16),
+            torch.randn(64, 289, generator=gen).to(torch.bfloat16))),
+        "int8_matmul": (ops.int8_matmul, (
+            torch.randint(-127, 127, (8, 64), dtype=torch.int8,
+                          generator=gen),
+            torch.randint(-127, 127, (4, 64), dtype=torch.int8,
+                          generator=gen).t(), None)),
+    }
+
+
+@pytest.mark.parametrize("name", ["nms_suppress", "superstem", "int8_matmul"])
+def test_operator_passes_opcheck(name):
+    """Each kernel's operator: schema, fake (shape) implementation, autograd
+    registration and AOT dispatch with dynamic shapes, on CPU tensors."""
+    op, args = _opcheck_args()[name]
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
