@@ -79,7 +79,19 @@ just before and read just after:
   BN, the shipped ``int8_scales.npy``, restored checkpoints serving through
   ``make_infer_fn(int8_scales=...)``; step time and parts; then a short
   QAT of the overfit 96x96 YOLOv2 lowers the engine's loss with its int8
-  mAP@.5 within 0.15.
+  mAP@.5 within 0.15;
+* the host data path — phase loader: the C++ JPEG loader built on the
+  card's host (g++, libjpeg), ``decode_resize_batch`` to 416x416 on the 64
+  eval JPEGs against PIL, and ``evaluate_batched`` (YOLOv2 bf16, batch 64)
+  with the loader against PIL (PIL alone where the loader cannot build);
+  phase host_augment: a YOLOv2-416 batch-32 ``Trainer`` epoch on synthetic
+  375x500 VOC JPEGs with the reference-order host augmentation against the
+  in-step device augmentation (ms/step, device busy share, 1 warp launch a
+  device step and none a host step);
+* data parallelism — phase dp: a one-rank NCCL group, the data-parallel
+  YOLOv2-416 train step at batch 32 with device augmentation against the
+  plain step (f32 losses within rtol 1e-5), bf16 ms/step of both and the
+  gradient all-reduce's device time; a failed NCCL init fails the run.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with each kernel's launches, error and times, and as its last line
@@ -3328,6 +3340,273 @@ def phase_yolov3(counters):
     return launches, launches8, img_s, img_s8, gemm
 
 
+# This slice's host data path and data parallelism (phases loader,
+# host_augment, dp): the C++ loader against PIL on the eval JPEGs, a train
+# epoch with host against device augmentation, and a one-rank NCCL group.
+HOST_AUG_IMAGES = 128
+HOST_AUG_HW = (375, 500)
+
+
+def phase_loader(model, counters):
+    """The port's C++ loader on this host: can it build (g++, jpeglib.h),
+    in how many seconds; ``decode_resize_batch`` to 416x416 on the 64 eval
+    JPEGs against PIL decode + resize on one thread; ``evaluate_batched``
+    (YOLOv2 bf16, batch 64) with the loader against PIL.  A host without
+    g++ or libjpeg runs the PIL figures alone (the JAX package degrades the
+    same way).  Returns the launches of the evaluator runs."""
+    import shutil
+    from unittest import mock
+
+    from odc_tpu_torch.eval import Detector, evaluate_batched
+    from odc_tpu_torch.native import loader
+
+    have = {"g++": shutil.which("g++") is not None,
+            "jpeglib.h": any(os.path.exists(os.path.join(d, "jpeglib.h"))
+                             for d in ("/usr/include", "/usr/local/include",
+                                       "/usr/include/x86_64-linux-gnu"))}
+    # The first decode of the run (phase native's eval) built the library
+    # or failed to: time a fresh build into a temporary folder.
+    res = {"host_has": have, "built": loader.available()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        try:
+            loader.build(os.path.join(tmp, "lib.so"), force=True)
+            res["build_s"] = time.perf_counter() - t
+        except (OSError, subprocess.SubprocessError):
+            res["build_s"] = None
+    if not res["built"]:
+        res["why"] = (loader.load_error or "")[-600:]
+    launches = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as root:
+        dataset = _voc_val(EVAL_SIZES, root)
+        n = len(dataset)
+        paths = dataset.img_path_list
+        from PIL import Image
+
+        def pil_one(p):
+            with Image.open(p) as im:
+                img = np.asarray(im.convert("RGB"))
+            return np.asarray(Image.fromarray(img).resize(
+                (HW[1], HW[0]), Image.BILINEAR))
+
+        t = time.perf_counter()
+        for p in paths:
+            pil_one(p)
+        res["pil_decode_resize_img_s"] = n / (time.perf_counter() - t)
+        if res["built"]:
+            loader.decode_resize_batch(paths[:8], HW)  # warm-up
+            rates = []
+            for _ in range(3):
+                t = time.perf_counter()
+                imgs, _ = loader.decode_resize_batch(paths, HW)
+                rates.append(n / (time.perf_counter() - t))
+            res["loader_batch_img_s"] = statistics.median(rates)
+            res["loader_threads"] = os.cpu_count()
+            t = time.perf_counter()
+            for p in paths:
+                loader.decode_resize_jpeg(p, HW)
+            res["loader_one_thread_img_s"] = n / (time.perf_counter() - t)
+            ref = np.stack([loader.resize_bilinear(loader.decode_jpeg(p), HW)
+                            for p in paths])
+            if not np.array_equal(imgs, ref):
+                raise AssertionError("loader: batch != per-image decode + "
+                                     "resize")
+        det = Detector(model, conf_thre=0.05)
+        modes = [("pil", False)]
+        if res["built"]:
+            modes.append(("loader", True))
+        scores = {}
+        for name, on in modes:
+            with mock.patch.object(loader, "available", lambda on=on: on):
+                walls = []
+                for _ in range(2):  # the first run meets new shapes
+                    before = {k: w.launches for k, w in counters.items()}
+                    t = time.perf_counter()
+                    result = evaluate_batched(det, dataset, image_hw=HW,
+                                              batch_size=BATCH)
+                    walls.append(time.perf_counter() - t)
+                    for k, w in counters.items():
+                        launches[k] += w.launches - before[k]
+            scores[name] = _map_scores(result, det.cls_list)
+            res[f"evaluate_batched_{name}_img_s"] = [n / w for w in walls]
+        res["map50"] = {k: v[0] for k, v in scores.items()}
+    print(json.dumps({"phase": "loader", **res}))
+    if launches["nms_suppress"] == 0:
+        raise AssertionError("loader: evaluate_batched launched no NMS")
+    return launches
+
+
+def phase_host_augment(counters):
+    """A YOLOv2-416 bf16 Trainer epoch at batch 32 on synthetic VOC JPEGs
+    (375x500) with the reference-order host augmentation against the
+    in-step device augmentation: ms/step of a timed epoch after a warm-up
+    one, and the device's busy share in a third, profiled epoch.  The
+    pipeline decodes and resizes on its prefetch thread in both.  Returns
+    the launches of the timed epochs."""
+    import dataclasses
+
+    from odc_tpu_torch.config import TRAIN_CONFIG
+    from odc_tpu_torch.data.host_augment import reference_augment
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.train.trainer import Trainer
+
+    res, launches = {}, {k: 0 for k in counters}
+    config = dataclasses.replace(
+        TRAIN_CONFIG["YOLOv2"]["VOC2012"], learning_rate_list=[1e-3],
+        num_epoch_list=[1], batch_size=TRAIN_BATCH, momentum=0.9,
+        multiscale_sizes=(), seed=SEED)
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_voc(root, num_train=HOST_AUG_IMAGES, num_val=0,
+                           image_hw=HOST_AUG_HW, seed=SEED)
+        voc = VOC(dataset_dir=root)
+        for name in ("host", "device"):
+            pipe = DetectionPipeline(
+                voc.train_dataset, HW, TRAIN_BATCH, config.max_boxes,
+                seed=SEED,
+                augment=reference_augment if name == "host" else None)
+            model = get_model("YOLOv2", dtype=torch.bfloat16, device=DEVICE,
+                              seed=SEED, image_size=HW)
+            trainer = Trainer(
+                model, pipe, None, config, os.path.join(root, name),
+                augment_cfg=AugmentConfig() if name == "device" else None)
+            state = trainer.init_state()
+            trainer.run_train_epoch(state, 1)  # warm-up
+            for w in counters.values():
+                w.launches = 0
+            t = time.perf_counter()
+            trainer.run_train_epoch(state, 1)
+            sync()
+            wall = time.perf_counter() - t
+            for k, w in counters.items():
+                launches[k] += w.launches
+            steps = len(pipe)
+            res[name] = {"ms_per_step": 1e3 * wall / steps, "steps": steps,
+                         "warp_launches": counters["warp_affine"].launches}
+            # The busy share from a third epoch under the profiler (which
+            # adds host time of its own).
+            res[name]["device_busy_pct"] = _profile(
+                lambda: trainer.run_train_epoch(state, 1), calls=1)
+            want = steps if name == "device" else 0
+            if res[name]["warp_launches"] != want:
+                raise AssertionError(f"host_augment {name}: warp launches "
+                                     f"{res[name]['warp_launches']}, want "
+                                     f"{want}")
+            del model, trainer, state
+            torch.cuda.empty_cache()
+    res["host_over_device"] = (res["host"]["ms_per_step"]
+                               / res["device"]["ms_per_step"])
+    print(json.dumps({"phase": "host_augment", **res}))
+    return launches
+
+
+def phase_dp(counters):
+    """A one-rank NCCL group (``tcp://127.0.0.1``, world size 1): the
+    data-parallel train step (BN statistics over the group, global loss
+    counts, the one-bucket gradient all-reduce, global-batch augmentation
+    draws) of YOLOv2-416 at batch 32 with device augmentation, against the
+    plain step from the same state and batch: the f32 losses within rtol
+    1e-5; then bf16 ms/step of both and the all-reduce's own device time.
+    A failed NCCL init or collective fails the run.  Returns the launches
+    of the timed data-parallel steps."""
+    import socket
+
+    import torch.distributed as dist
+
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.prefetch import device_prefetch
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.parallel import (
+        all_reduce_grads, broadcast_state, maybe_initialize_distributed,
+    )
+    from odc_tpu_torch.train.trainer import TrainState, make_train_step
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dp = maybe_initialize_distributed(
+        device=DEVICE, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+        rank=0)
+    res = {"backend": dist.get_backend(), "world_size": dp.world_size,
+           "device": str(dp.device)}
+    launches = {k: 0 for k in counters}
+    try:
+        if res["backend"] != "nccl":
+            raise AssertionError(f"dp: backend {res['backend']}, not nccl")
+        data = _RectanglesOnNoise(TRAIN_BATCH, HW, SEED + 9)
+        pipe = DetectionPipeline(data, HW, TRAIN_BATCH, 64, seed=SEED,
+                                 process_index=dp.rank,
+                                 process_count=dp.world_size)
+        batches = device_prefetch(pipe, dp.device)
+        batch = next(batches)
+        batches.close()
+        cfg = AugmentConfig()
+
+        def run(dtype, use_dp, steps=1):
+            model = get_model("YOLOv2", dtype=dtype, device=DEVICE,
+                              seed=SEED, image_size=HW)
+            state = TrainState(model)
+            if use_dp:
+                broadcast_state(state, dp)
+            step = make_train_step("v2", Lambdas(), model.anchors,
+                                   momentum=0.9, augment_cfg=cfg,
+                                   dp=dp if use_dp else None)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            return model, state, step, gen
+
+        losses = {}
+        for use_dp in (False, True):
+            model, state, step, gen = run(torch.float32, use_dp)
+            _, metrics = step(state, batch, 1e-3, gen)
+            losses[use_dp] = float(metrics["loss"])
+            del model, state
+        rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        res["f32_loss_plain"], res["f32_loss_dp"] = losses[False], losses[True]
+        res["f32_loss_rel_diff"] = rel
+        if not rel <= 1e-5:
+            raise AssertionError(f"dp: loss {losses[True]} vs plain "
+                                 f"{losses[False]} (rel {rel:.2e} > 1e-5)")
+        torch.cuda.empty_cache()
+
+        for use_dp in (False, True):
+            model, state, step, gen = run(torch.bfloat16, use_dp)
+            for _ in range(3):
+                step(state, batch, 1e-3, gen)
+            sync()
+            if use_dp:
+                for w in counters.values():
+                    w.launches = 0
+            times = []
+            for _ in range(TIMED_STEPS):
+                t = time.perf_counter()
+                step(state, batch, 1e-3, gen)
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+            if use_dp:
+                launches = {k: w.launches for k, w in counters.items()}
+            res["bf16_ms_per_step_" + ("dp" if use_dp else "plain")] = (
+                statistics.median(times))
+            if use_dp:
+                params = list(model.parameters())
+                res["grad_bucket_mb"] = sum(
+                    p.numel() for p in params) * 4 / 1e6
+                res["all_reduce_ms"] = time_ms(
+                    lambda: all_reduce_grads(params, dp), TIMED_STEPS)
+            del model, state
+            torch.cuda.empty_cache()
+        if launches["warp_affine"] != TIMED_STEPS:
+            raise AssertionError(f"dp: warp launches {launches}, want "
+                                 f"{TIMED_STEPS}")
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"phase": "dp", **res}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3359,6 +3638,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     native = phase_native(model, scales, counters)
     phase_eval(model, scales, counters)
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    loader_launches = phase_loader(model, counters)
     served, serve_res = phase_serve(model, scales, counters)
     del model, scales
     torch.cuda.empty_cache()
@@ -3367,6 +3649,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as map_root:
         trained = phase_int8_map("YOLOv2", map_root)
         train_launches, train_img_s = phase_train(every)
+        torch.cuda.empty_cache()
+        host_aug_launches = phase_host_augment(every)
+        dp_launches = phase_dp(every)
         torch.cuda.empty_cache()
         qat_launches, qat_routes, qat_img_s = phase_qat(every, trained)
         del trained
@@ -3384,12 +3669,17 @@ def main() -> int:
           f"{train_launches}, YOLOv2 QAT fine-tune {qat_launches}, YOLOv1 "
           f"serving {v1_launches}, YOLOv1 training {v1_train_launches}, "
           f"YOLOv3 serving bf16 {v3_launches}, int8_dynamic {v3_launches8}, "
-          f"YOLOv3 training {v3_train_launches}")
+          f"YOLOv3 training {v3_train_launches}, evaluate_batched with the "
+          f"loader and PIL {loader_launches}, train epochs with host and "
+          f"device augmentation {host_aug_launches}, data-parallel steps "
+          f"{dp_launches}")
     print(f"launches of the served artifacts (phase serve): {served}")
     # Each kernel's launches are those of the main paths that run it (the
-    # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths, and every served
-    # artifact; the superstem: YOLOv2 bf16 serving, direct and from
-    # artifacts; the warp: the three training paths and the QAT fine-tune;
+    # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths, every served
+    # artifact and phase loader's evaluator runs; the superstem: YOLOv2
+    # bf16 serving, direct, from artifacts and in phase loader; the warp:
+    # the three training paths, the QAT fine-tune, phase host_augment's
+    # device epoch and phase dp's steps;
     # the GEMM: the YOLOv2 int8 engine, the QAT fine-tune, YOLOv3
     # int8_dynamic and their artifacts); the GEMM's times are sums over the
     # 20 GEMMs of one YOLOv2 int8 call (the 32 of a YOLOv3 call are printed
@@ -3401,18 +3691,22 @@ def main() -> int:
              launches=(launches["nms_suppress"] + v1_launches["nms_suppress"]
                        + v3_launches["nms_suppress"]
                        + v3_launches8["nms_suppress"]
-                       + served["nms_suppress"]), **nms),
+                       + served["nms_suppress"]
+                       + loader_launches["nms_suppress"]), **nms),
         dict(name="superstem", route="cuda",
              source="odc_tpu_torch/csrc/superstem.cu",
              replaces="odc_tpu/ops/pallas/superstem_kernel.py:270",
-             launches=launches["superstem"] + served["superstem"], **stem),
+             launches=(launches["superstem"] + served["superstem"]
+                       + loader_launches["superstem"]), **stem),
         dict(name="warp_affine", route="cuda",
              source="odc_tpu_torch/csrc/warp_affine.cu",
              replaces="odc_tpu/ops/pallas/warp_kernel.py:124",
              launches=(train_launches["warp_affine"]
                        + qat_launches["warp_affine"]
                        + v1_train_launches["warp_affine"]
-                       + v3_train_launches["warp_affine"]), **warp),
+                       + v3_train_launches["warp_affine"]
+                       + host_aug_launches["warp_affine"]
+                       + dp_launches["warp_affine"]), **warp),
         dict(name="int8_matmul", route="cuda",
              source="odc_tpu_torch/csrc/int8_matmul.cu",
              replaces="scripts/probe_int8_mxu.py:76",

@@ -2,16 +2,26 @@
 
 Same keys as the JAX package — ``MODEL_CONFIG`` / ``TRAIN_CONFIG`` with
 ``learning_rate_list``, ``num_epoch_list`` and the ``lambda_*`` loss
-weights — so a run configured for one package configures the other.  The
-JAX package's ``MeshConfig`` (jax device layout) has no counterpart yet:
-the port's entry points take a ``device`` argument, and multi-process data
-parallelism is a later slice.
+weights — so a run configured for one package configures the other.
+``MeshConfig`` keeps the JAX package's (data, model) axes: ``data`` is the
+number of data-parallel processes (``parallel/mesh.py``), ``model`` must
+stay 1 (every model fits one card).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Tuple
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """How training spreads over processes: ``data`` data-parallel ranks
+    (-1: the launcher's world size) and ``model`` tensor-parallel shards
+    (only 1: the JAX package's model axis has no counterpart)."""
+
+    data: int = -1
+    model: int = 1
 
 
 @dataclasses.dataclass

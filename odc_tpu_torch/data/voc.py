@@ -11,8 +11,9 @@ the reference:
 * pickle cache at ``datasets/voc_dataset.pkl``;
 * ``__getitem__ -> (index, RGB uint8 HWC ndarray, annot)``.
 
-JPEG decode goes through PIL, imported inside the functions that decode or
-write JPEGs (the JAX package's C++ loader is not wrapped yet).
+JPEG decode goes through the port's C++ loader (``odc_tpu_torch/native``)
+when it builds, else PIL; PIL is imported inside the functions that need
+it.
 
 Also provides :func:`make_synthetic_voc` — a tiny generated VOC tree
 (JPEGs + XMLs) for integration tests and smoke runs.
@@ -50,7 +51,17 @@ _SPLITS = {
 
 
 def _decode_jpeg(path: str) -> np.ndarray:
-    """JPEG -> RGB uint8 HWC, through PIL."""
+    """JPEG -> RGB uint8 HWC.  Native libjpeg path when available; PIL
+    otherwise, and also as the fallback for files the native decoder
+    rejects (non-JPEG or corrupt), so one odd file degrades gracefully
+    instead of aborting an epoch."""
+    from odc_tpu_torch.native import loader as native_loader
+
+    if native_loader.available():
+        try:
+            return native_loader.decode_jpeg(path)
+        except IOError:
+            pass
     from PIL import Image
 
     with Image.open(path) as im:

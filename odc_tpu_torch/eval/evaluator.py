@@ -17,8 +17,9 @@ size); ``evaluate_batched_native``
 every image is scored at its native size.  All three share the AP math of
 ``core/ap.py``.
 
-Host decode and resize run through PIL on a prefetch thread (the JAX
-package's C++ loader is not wrapped yet).  Outputs are numpy.
+Host decode and resize run on a prefetch thread, through the port's C++
+loader when it builds (``evaluate_batched`` then decodes and resizes each
+batch in one call into its thread pool), else PIL.  Outputs are numpy.
 """
 
 from __future__ import annotations
@@ -28,15 +29,18 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from odc_tpu_torch.core.ap import APAccumulator, DEFAULT_LEVELS
-from odc_tpu_torch.data.voc import CLASS_LIST
+from odc_tpu_torch.data.voc import CLASS_LIST, dataset_supports_raw_paths
+from odc_tpu_torch.native import loader as native_loader
 from odc_tpu_torch.ops.detect import make_infer_fn, make_native_infer_fn
 
 
 def _resize_host(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of an RGB uint8 image through PIL; a no-op at
-    ``out_hw``."""
+    """Bilinear resize of an RGB uint8 image through the native loader (the
+    cv2 fixed-point scheme), or PIL without it; a no-op at ``out_hw``."""
     if img.shape[:2] == tuple(out_hw):
         return img
+    if native_loader.available():
+        return native_loader.resize_bilinear(img, out_hw)
     from PIL import Image
 
     return np.array(
@@ -211,12 +215,20 @@ def evaluate_batched(
     levels: Sequence[float] = DEFAULT_LEVELS,
     dedup: bool = False,
     prefetch: int = 2,
+    dp=None,
 ) -> Dict[str, np.ndarray]:
     """Streaming batched mAP: fixed-size batches at ``image_hw`` (for a
     YOLOv1 its ``image_size``, the only size its Dense head takes) through
     one inference function, predictions rescaled to each image's original
     size.  Decode and resize run on a prefetch thread, overlapped with the
-    device's inference on the previous batch."""
+    device's inference on the previous batch: one call into the native
+    loader's thread pool a batch for a dataset with raw paths (a file it
+    cannot decode raises), else image by image.
+
+    ``dp`` (a ``parallel.DataParallel``): rank ``r`` runs every
+    ``world_size``-th batch from batch ``r``, the ranks exchange their
+    per-image predictions, and every rank scores all of them in dataset
+    order, so each returns the one-process result."""
     image_hw = tuple(image_hw)
     net_hw = tuple(detector.model.image_size)
     if detector.mode == "v1" and image_hw != net_hw:
@@ -225,18 +237,32 @@ def evaluate_batched(
     acc = APAccumulator(detector.cls_list, levels, dedup=dedup)
     n = len(dataset)
     h, w = image_hw
+    fast = (dataset_supports_raw_paths(dataset)
+            and native_loader.batch_available())
 
     def load(start):
+        idxs = range(start, min(start + batch_size, n))
         imgs = np.zeros((batch_size, h, w, 3), np.uint8)
+        if fast:
+            paths = [dataset.img_path_list[i] for i in idxs]
+            decoded, src_hw = native_loader.decode_resize_batch(
+                paths, image_hw)
+            imgs[: len(paths)] = decoded
+            return imgs, [(tuple(src_hw[j]), dataset.annot_list[i])
+                          for j, i in enumerate(idxs)]
         metas = []
-        for j, i in enumerate(range(start, min(start + batch_size, n))):
+        for j, i in enumerate(idxs):
             _, img, annot = dataset[i]
             imgs[j] = _resize_host(img, image_hw)
             metas.append((img.shape[:2], annot))
         return imgs, metas
 
+    starts = range(0, n, batch_size)
+    if dp is not None:
+        starts = starts[dp.rank::dp.world_size]
+
     def items():
-        for start in range(0, n, batch_size):
+        for start in starts:
             yield load(start)
 
     batches = items()
@@ -245,7 +271,8 @@ def evaluate_batched(
 
         batches = threaded_prefetch(items, maxsize=prefetch)
 
-    for imgs, metas in batches:
+    records = []  # (dataset index, the add_image arguments)
+    for start, (imgs, metas) in zip(starts, batches):
         boxes_b, _conf_b, lbl_b, score_b, keep_b = (
             detector.infer_batch_compact(imgs)
         )
@@ -254,12 +281,21 @@ def evaluate_batched(
             boxes = boxes_b[j][keep] * np.array(
                 [ow / w, oh / h, ow / w, oh / h]
             )
-            acc.add_image(
+            records.append((start + j, (
                 boxes,
                 [detector.cls_list[k] for k in lbl_b[j][keep]],
                 score_b[j][keep],
                 *_gt(annot),
-            )
+            )))
+    if dp is not None:
+        import torch.distributed as dist
+
+        gathered = [None] * dp.world_size
+        dist.all_gather_object(gathered, records, group=dp.group)
+        records = sorted((r for part in gathered for r in part),
+                         key=lambda r: r[0])
+    for _, args in records:
+        acc.add_image(*args)
     return acc.result()
 
 

@@ -25,7 +25,7 @@ multiply, they do not select: padded rows must hold finite values (their
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +140,7 @@ def yolo_loss(
     lambdas: Lambdas = Lambdas(),
     mode: str = "v2",
     anchors: Optional[Tuple[Tuple[float, float], ...]] = None,
+    count_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, LossParts]:
     """The λ-weighted five-part loss over the batch.
 
@@ -149,11 +150,17 @@ def yolo_loss(
         lambdas: loss weights.
         mode: "v1" or "v2" (wh space and cls masking differ, see above).
         anchors: required for mode="v2" — (w, h) priors in grid units.
+        count_sum: data parallelism: the sum over ranks of a count
+            (``parallel.DataParallel.sum_counts``).  The box count is then
+            the global batch's, and the loss this rank's share of the
+            global batch's loss (the ranks' losses sum to it).
     """
     sq_xy, sq_wh, sq_conf, noobj_sum, sq_cls, valid, grid_slots = (
         _per_box_terms(det, targets, mode, anchors)
     )
     num_boxes = torch.sum(valid)
+    if count_sum is not None:
+        num_boxes = count_sum(num_boxes)
 
     parts = LossParts(
         _safe_mean(sq_xy, valid, 2.0 * num_boxes),

@@ -22,7 +22,7 @@ the identity above its threshold).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -155,16 +155,21 @@ def yolov3_loss(
     anchors: Sequence[Tuple[float, float]] = YOLOV3_ANCHORS,
     lambdas: Lambdas = Lambdas(),
     ignore_iou: float = 0.5,
+    count_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, LossParts]:
     """The lambda-weighted YOLOv3 loss over the heads ``ys`` (y32, y16, y8)
     of an ``image_hw`` input, with the 9 pixel ``anchors``.  The lambdas
     map xy -> center, wh -> log size, conf -> positive objectness, noobj ->
     background objectness, cls -> class BCE.  Returns ``(total,
     LossParts)``: positive terms are means over valid gts (xy and wh over
-    their two elements), noobj over background slots."""
+    their two elements), noobj over background slots.  ``count_sum``
+    (data parallelism, as ``yolo_loss``'s): both counts are the global
+    batch's."""
     terms = _all_terms(ys, targets, image_hw, anchors, ignore_iou)
+    count_sum = count_sum or (lambda t: t)
 
-    num_boxes = torch.clamp(sum(torch.sum(t.sel) for t in terms), min=1.0)
+    num_boxes = torch.clamp(
+        count_sum(sum(torch.sum(t.sel) for t in terms)), min=1.0)
 
     def pos_mean(field, scale=1.0):
         return sum(
@@ -175,8 +180,8 @@ def yolov3_loss(
     loss_wh = pos_mean("sq_wh", 2.0)
     loss_conf = pos_mean("obj_pos")
     loss_cls = pos_mean("cls_bce")
-    noobj_cnt = torch.clamp(sum(torch.sum(t.noobj_cnt) for t in terms),
-                            min=1.0)
+    noobj_cnt = torch.clamp(
+        count_sum(sum(torch.sum(t.noobj_cnt) for t in terms)), min=1.0)
     loss_noobj = sum(torch.sum(t.noobj_sum) for t in terms) / noobj_cnt
 
     parts = LossParts(loss_xy, loss_wh, loss_conf, loss_noobj, loss_cls)

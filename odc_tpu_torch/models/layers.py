@@ -4,7 +4,8 @@ Port of ``odc_tpu/models/layers.py``.  Modules take and return NHWC tensors
 like the JAX package; inside, a convolution runs on the NCHW view of the
 same memory (``permute`` of a contiguous NHWC tensor is a ``channels_last``
 NCHW tensor, which cuDNN takes as is).  Parameters stay float32 and are cast
-to the compute dtype at use; BatchNorm always computes in float32.
+to the compute dtype at use; BatchNorm computes in float32 (float64 for a
+float64 input).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from odc_tpu_torch.core.image import (  # noqa: F401  (re-exported)
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the last (channel) dim, in float32, with
-    ``torch.nn.BatchNorm2d``'s running-statistics semantics:
+    """BatchNorm over the last (channel) dim, in float32 (float64 for a
+    float64 input), with ``torch.nn.BatchNorm2d``'s running-statistics
+    semantics:
     ``(x - mean) * rsqrt(var + eps) * weight + bias``.
 
     In eval mode ``mean``/``var`` are the running statistics.  In training
@@ -33,7 +35,14 @@ class TorchBatchNorm(nn.Module):
     (0.9, i.e. ``BatchNorm2d(momentum=0.1)``).
 
     Parameter names are ``torch.nn.BatchNorm2d``'s (``weight``, ``bias``,
-    ``running_mean``, ``running_var``)."""
+    ``running_mean``, ``running_var``).
+
+    Data parallelism (``synced``, set by ``parallel.DataParallel.attach``):
+    the training-mode statistics are those of the GLOBAL batch, reduced
+    over ``sync_group`` by :func:`global_var_mean`."""
+
+    synced = False
+    sync_group = None
 
     def __init__(self, features: int, eps: float = 1e-5, decay: float = 0.9):
         super().__init__()
@@ -45,8 +54,17 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training and self.synced:
+            var, mean, n = global_var_mean(xf, self.sync_group)
+            with torch.no_grad():
+                self.running_mean.mul_(self.decay).add_(
+                    mean, alpha=1.0 - self.decay
+                )
+                self.running_var.mul_(self.decay).add_(
+                    var * (n / (n - 1).clamp(min=1)) * (1.0 - self.decay)
+                )
+        elif self.training:
             axes = tuple(range(x.dim() - 1))
             var, mean = torch.var_mean(xf, dim=axes, correction=0)
             n = x.numel() // x.shape[-1]
@@ -61,6 +79,48 @@ class TorchBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``all_reduce`` (sum) over ``group`` whose backward sums the incoming
+    gradients over the ranks as well: each rank's loss depends on every
+    rank's contribution to the sum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def global_var_mean(xf: torch.Tensor, group=None):
+    """``(biased var, mean, count)`` per channel (last dim) of ``xf`` over
+    its leading dims on every rank of ``group``, in two passes as
+    ``torch.var_mean`` computes them: all-reduce the sums and counts for
+    the global mean, then the centred sums of squares (one pass, E[x²] −
+    E[x]², cancels in f32 on channels whose mean is large against their
+    spread).  The reductions are differentiable: the gradient of a
+    global-batch statistic reaches every rank's activations, as the
+    JAX package's step differentiates through its cross-process sum."""
+    axes = tuple(range(xf.dim() - 1))
+    c = xf.shape[-1]
+    n_local = xf.new_full((1,), xf.numel() // c)
+    sums = _SumOverRanks.apply(torch.cat([xf.sum(axes), n_local]), group)
+    n = sums[c:].detach()
+    mean = sums[:c] / n
+    var = _SumOverRanks.apply(((xf - mean) ** 2).sum(axes), group) / n
+    return var, mean, n
 
 
 def _conv_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:

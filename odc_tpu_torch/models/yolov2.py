@@ -114,7 +114,8 @@ class YOLOv2(nn.Module):
         neck_override: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         valid_hw=None,
     ) -> torch.Tensor:
-        """[N, H, W, 3] RGB (0-255) -> raw head [N, Hg, Wg, A, 5 + C] f32.
+        """[N, H, W, 3] RGB (0-255) -> raw head [N, Hg, Wg, A, 5 + C] f32
+        (f64 for a float64 model).
 
         ``stem_out`` (inference only): the fused stem's [N, H/4, W/4, 64]
         map in place of stages 1-2 (see ``ops/detect.py``).
@@ -159,7 +160,8 @@ class YOLOv2(nn.Module):
             h.permute(0, 3, 1, 2), self.head.weight.to(dt), self.head.bias.to(dt)
         ).permute(0, 2, 3, 1)  # NHWC before the reshape
         n, hg, wg, _ = y.shape
-        return y.reshape(n, hg, wg, self.num_anchor_box, 5 + self.num_cls).float()
+        return y.reshape(n, hg, wg, self.num_anchor_box, 5 + self.num_cls).to(
+            torch.promote_types(dt, torch.float32))
 
     def decode(self, y: torch.Tensor, image_hw=None) -> Detections:
         return decode_v2(y, tuple(image_hw or self.image_size), self.anchors)

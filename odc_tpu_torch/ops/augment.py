@@ -314,10 +314,20 @@ def augment_batch(
     valid: torch.Tensor,
     cfg: AugmentConfig = AugmentConfig(),
     warp_impl: str = "auto",
+    dp=None,
 ):
-    """One augmentation pass over the batch: sample, then apply."""
+    """One augmentation pass over the batch: sample, then apply.
+
+    Data parallelism (``dp``, a ``parallel.DataParallel``): the batch is
+    this rank's contiguous slice of the global batch, so the parameters are
+    drawn for the GLOBAL batch from the same-seeded generator on every
+    rank, and the rank keeps its rows; each image is augmented as the
+    one-process step would augment it."""
+    b = images.shape[0]
+    world, rank = (1, 0) if dp is None else (dp.world_size, dp.rank)
     params = sample_augment_params(
-        generator, images.shape[0], cfg, tuple(images.shape[1:3]),
-        images.device,
+        generator, b * world, cfg, tuple(images.shape[1:3]), images.device,
     )
+    if world > 1:
+        params = AugmentParams(*(f[rank * b:(rank + 1) * b] for f in params))
     return apply_augment(images, boxes, valid, params, cfg, warp_impl)

@@ -248,6 +248,7 @@ def make_qat_train_step(
     augment_cfg=None,
     augment_warp_impl: str = "auto",
     on_phase: Optional[Callable[[str], None]] = None,
+    dp=None,
 ) -> Callable:
     """Build the QAT fine-tune step: ``(state, batch, lr, generator) ->
     (state, metrics)``, with the metric names of
@@ -266,7 +267,10 @@ def make_qat_train_step(
     ``generator``, targets re-assigned from the augmented boxes, as the
     trainer's step.  ``on_phase`` (measurement only): called with
     "augment", "twin", "engine" (exact mode), "loss", "backward" and
-    "update" as each part has been enqueued."""
+    "update" as each part has been enqueued.  ``dp`` (a
+    ``parallel.DataParallel``): global-batch augmentation draws, global loss
+    counts, gradients summed over the ranks and global metrics, as the
+    trainer's step (BN is frozen here, so it reduces nothing)."""
     neck = getattr(model, "neck_kind", None)
     if type(model).__name__ != "YOLOv2" or neck != "quadrant":
         raise ValueError(
@@ -275,7 +279,10 @@ def make_qat_train_step(
         )
     from odc_tpu_torch.ops.assign import assign
     from odc_tpu_torch.ops.augment import augment_batch
-    from odc_tpu_torch.train.trainer import _loss, _targets_of, sgd_update
+    from odc_tpu_torch.parallel.mesh import all_reduce_grads
+    from odc_tpu_torch.train.trainer import (
+        _loss, _targets_of, sgd_update, step_metrics,
+    )
 
     anchors = anchors if anchors is not None else model.anchors
     mark = on_phase or (lambda name: None)
@@ -289,7 +296,7 @@ def make_qat_train_step(
             with torch.no_grad():
                 image, boxes, valid = augment_batch(
                     generator, image, batch.box, batch.valid, augment_cfg,
-                    warp_impl=augment_warp_impl,
+                    warp_impl=augment_warp_impl, dp=dp,
                 )
                 targets = assign(
                     boxes, batch.cls, valid, tuple(image.shape[1:3]),
@@ -305,25 +312,18 @@ def make_qat_train_step(
                 on_phase=mark,
             )
             loss, parts = _loss(model, "v2", y, tuple(image.shape[1:3]),
-                                targets, lambdas, anchors)
+                                targets, lambdas, anchors, dp)
             mark("loss")
             loss.backward()
         mark("backward")
         for p in net.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if dp is not None:
+            all_reduce_grads(net.parameters(), dp)
         sgd_update(state, float(lr), momentum, weight_decay)
         state.step += 1
         mark("update")
-
-        metrics = {
-            "loss": loss.detach(),
-            "loss_xy": parts.xy.detach(),
-            "loss_wh": parts.wh.detach(),
-            "loss_conf": parts.conf.detach(),
-            "loss_noobj": parts.noobj.detach(),
-            "loss_cls": parts.cls.detach(),
-        }
-        return state, metrics
+        return state, step_metrics(loss, parts, dp)
 
     return qat_step

@@ -28,6 +28,20 @@ unless ``--momentum`` says otherwise) and writes ``best_qat_model.ckpt``,
 package's (flax msgpack) alike.
 
     python -m odc_tpu_torch.train --model YOLOv2 --qat best_model.ckpt
+
+``--augment`` defaults to ``host``, as the JAX package's ``train.py``: the
+reference-order augmentation on the host (``data/host_augment.py``), on the
+pipeline's prefetch thread.  ``--augment device`` runs the fused in-step
+augmentation on the card instead, the fast choice there.
+
+Data parallelism: one process per card, launched by ``torchrun`` (the
+group comes from its environment, ``nccl`` on cards, ``gloo`` with
+``--device cpu``); ``--data-parallel`` defaults to the world size and must
+equal it.  Each rank reads its slice of every global ``--batch-size``
+batch; only rank 0 writes checkpoints and metrics (the other ranks' folders
+end in `` rank<r>``).
+
+    torchrun --nproc-per-node 4 -m odc_tpu_torch.train --model YOLOv2
 """
 
 from __future__ import annotations
@@ -35,14 +49,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import os
-
-_LATER = {
-    "data_parallel": "--data-parallel comes with the data-parallel slice of "
-    "the port",
-    "model_parallel": "--model-parallel comes with the data-parallel slice "
-    "of the port",
-}
-
+import sys
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -66,9 +73,11 @@ def parse_args(argv=None):
     p.add_argument("--no-augment", action="store_true",
                    help="shorthand for --augment none")
     p.add_argument(
-        "--augment", default="device", choices=["host", "device", "none"],
-        help="device: in-step augmentation on the training device "
-        "(default). none: disable. host: not ported yet.",
+        "--augment", default="host", choices=["host", "device", "none"],
+        help="host: reference-order augmentation on the host, on the "
+        "pipeline's prefetch thread (default, as the JAX package). device: "
+        "fused in-step augmentation on the training device (the fast "
+        "choice on a card). none: disable.",
     )
     p.add_argument("--device", default="cuda",
                    help="torch device to train on; 'cpu' for smoke runs")
@@ -96,22 +105,14 @@ def parse_args(argv=None):
     p.add_argument("--qat-calib-batches", type=int, default=1,
                    help="train batches (un-augmented) to calibrate "
                    "activation scales on")
-    # Flags of paths that are not ported yet: accepted so that a command
-    # line written for the JAX package fails with a clear message.
-    p.add_argument("--data-parallel", type=int, default=None,
-                   help=_LATER["data_parallel"])
-    p.add_argument("--model-parallel", type=int, default=None,
-                   help=_LATER["model_parallel"])
+    p.add_argument("--data-parallel", type=int, default=-1,
+                   help="data-parallel processes (-1: the launcher's world "
+                   "size, which any other value must equal)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="only 1: every model trains on one card")
     args = p.parse_args(argv)
 
     aug_mode = "none" if args.no_augment else args.augment
-    if aug_mode == "host":
-        p.error("--augment host is not ported yet: host augmentation comes "
-                "with the host-augment slice of the port; use --augment "
-                "device or --augment none")
-    for name, message in _LATER.items():
-        if getattr(args, name):
-            p.error(f"not ported yet: {message}")
     if args.image_size is not None and args.image_size % 32:
         p.error("--image-size must be a multiple of 32")
     if args.qat and args.model != "YOLOv2":
@@ -124,27 +125,55 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
 
+    import torch
+
+    from odc_tpu_torch.config import MeshConfig
+    from odc_tpu_torch.parallel import check_mesh, maybe_initialize_distributed
+
+    # Under torchrun: join the group (a no-op in one process); each rank's
+    # pipelines then read only its slice of every global batch.
+    dp = maybe_initialize_distributed(device=args.device)
+    try:
+        try:
+            check_mesh(MeshConfig(args.data_parallel, args.model_parallel),
+                       dp)
+        except ValueError as e:  # an argparse-style usage error
+            print(f"python -m odc_tpu_torch.train: error: {e}",
+                  file=sys.stderr)
+            raise SystemExit(2)
+        _train(args, dp)
+    finally:
+        if dp is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, dp) -> None:
     import dataclasses
 
     import torch
 
     from odc_tpu_torch.config import BATCH_SIZE, MODEL_CONFIG, TRAIN_CONFIG
     from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.host_augment import reference_augment
     from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
     from odc_tpu_torch.models import model_from_config
     from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.parallel import rank_zero_first
     from odc_tpu_torch.train import Trainer, checkpoint
 
+    pidx, pcnt = (0, 1) if dp is None else (dp.rank, dp.world_size)
     ckpt_path = os.path.join(
         args.ckpt_root,
         args.model,
-        datetime.datetime.now().strftime("%Y-%m-%d %H-%M-%S"),
+        datetime.datetime.now().strftime("%Y-%m-%d %H-%M-%S")
+        + (f" rank{pidx}" if pidx else ""),
     )
     os.makedirs(ckpt_path, exist_ok=True)
 
-    if args.synthetic:
-        make_synthetic_voc(args.dataset_dir, num_train=16, num_val=8)
-    dataset = VOC(dataset_dir=args.dataset_dir)
+    with rank_zero_first(dp):  # rank 0 writes the data and the index cache
+        if args.synthetic:
+            make_synthetic_voc(args.dataset_dir, num_train=16, num_val=8)
+        dataset = VOC(dataset_dir=args.dataset_dir)
 
     model_cfg = dataclasses.replace(MODEL_CONFIG[args.model])
     if args.image_size is not None:
@@ -167,7 +196,8 @@ def main(argv=None) -> None:
         train_cfg.momentum = args.momentum
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = model_from_config(model_cfg, dtype=dtype, device=args.device,
+    device = args.device if dp is None else dp.device
+    model = model_from_config(model_cfg, dtype=dtype, device=device,
                               seed=train_cfg.seed)
     print(f"device: {next(model.parameters()).device}")
 
@@ -179,6 +209,9 @@ def main(argv=None) -> None:
         mode=model.mode,
         cls_list=dataset.cls_list,
         seed=train_cfg.seed,
+        augment=reference_augment if args.augment == "host" else None,
+        process_index=pidx,
+        process_count=pcnt,
     )
     val_pipe = DetectionPipeline(
         dataset.val_dataset,
@@ -191,6 +224,8 @@ def main(argv=None) -> None:
         # Validate over EVERY image like the reference; the tail batch is
         # padded, not dropped.
         drop_remainder=False,
+        process_index=pidx,
+        process_count=pcnt,
     )
 
     augment_cfg = AugmentConfig() if args.augment == "device" else None
@@ -199,6 +234,7 @@ def main(argv=None) -> None:
         augment_cfg=augment_cfg,
         eval_map_every=args.eval_map_every,
         eval_map_conf_thre=args.eval_map_conf,
+        mesh=dp,
     )
 
     if args.qat:
@@ -222,7 +258,7 @@ def main(argv=None) -> None:
                        conf_thre=args.eval_map_conf)
         result = evaluate_batched(
             det, dataset.val_dataset, image_hw=image_size,
-            batch_size=train_cfg.batch_size,
+            batch_size=train_cfg.batch_size, dp=dp,
         )
         aps = np.stack([result[c] for c in dataset.cls_list])
         print(f"mAP[.5:.95]: {aps.mean():.4f}  mAP@.5: {aps[:, 0].mean():.4f}")
@@ -260,7 +296,7 @@ def _finetune_qat(args, trainer, dataset, augment_cfg) -> None:
         # default.
         momentum=args.momentum if args.momentum is not None else 0.9,
         weight_decay=cfg.weight_decay, lambdas=trainer.lambdas,
-        augment_cfg=augment_cfg, seed=cfg.seed,
+        augment_cfg=augment_cfg, seed=cfg.seed, mesh=trainer.dp,
     )
     print(f"done; QAT checkpoints + int8_scales.npy in {trainer.ckpt_path}")
 

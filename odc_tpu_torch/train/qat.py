@@ -15,8 +15,10 @@ QAT optimizes), with the trainer's batched masked-mean semantics, each
 batch weighted by its real images (``img_id >= 0``); the best checkpoint
 keys off it.
 
-Not ported yet: the JAX driver's ``mesh`` argument (data-parallel
-fine-tuning); it comes with the data-parallel slice of the port.
+Data parallelism (``mesh=DataParallel``): rank 0's state is broadcast, the
+step sums the gradients of global-count losses over the ranks
+(``make_qat_train_step(dp=)``), the engine's val loss is reduced over the
+ranks and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from odc_tpu_torch.losses.yolo_loss import Lambdas
+from odc_tpu_torch.parallel.mesh import broadcast_state
 from odc_tpu_torch.train import checkpoint as ckpt_lib
 from odc_tpu_torch.train.trainer import TrainState, _loss, _targets_of
 from odc_tpu_torch.utils.metrics import JsonlLogger
@@ -61,10 +64,12 @@ def calibrate_from_pipeline(model, pipeline, num_batches: int = 1):
         return calibrate(model, images)
 
 
-def make_engine_eval_step(model, lambdas: Lambdas, scales, stem: str = "s2d"):
+def make_engine_eval_step(model, lambdas: Lambdas, scales, stem: str = "s2d",
+                          dp=None):
     """Val step on the DEPLOYED int8 engine: ``(state, batch) -> loss``, the
     batched masked-mean loss (a 0-dim tensor), weighted by real image count
-    by the caller like the trainer's ``val_loss_mode='batched'`` path."""
+    by the caller like the trainer's ``val_loss_mode='batched'`` path; with
+    ``dp``, this rank's share of the global batch's loss."""
     from odc_tpu_torch.ops.int8_engine import (
         scales_tensor, yolov2_int8_forward,
     )
@@ -78,7 +83,7 @@ def make_engine_eval_step(model, lambdas: Lambdas, scales, stem: str = "s2d"):
             num_anchor_box=model.num_anchor_box, num_cls=model.num_cls,
         )
         total, _ = _loss(model, "v2", y, tuple(batch.image.shape[1:3]),
-                         _targets_of(batch), lambdas, model.anchors)
+                         _targets_of(batch), lambdas, model.anchors, dp)
         return total
 
     return eval_step
@@ -101,6 +106,7 @@ def finetune_qat(
     stem: str = "s2d",
     exact: bool = True,
     seed: int = 0,
+    mesh=None,
 ) -> Tuple[TrainState, dict]:
     """Fine-tune ``state`` (in place) against the frozen-scales int8 engine.
 
@@ -108,8 +114,9 @@ def finetune_qat(
     ``final_qat_model.ckpt``, ``int8_scales.npy`` and ``metrics.jsonl``
     (rows of kind ``qat_epoch`` and ``qat_val_epoch``) under
     ``ckpt_path``.  The augmentation draws from a ``torch.Generator`` on
-    the model's device seeded with ``seed``.  Returns ``(final_state,
-    history)``."""
+    the model's device seeded with ``seed``.  ``mesh``: a
+    ``parallel.DataParallel`` whose rank and world size the pipelines carry.
+    Returns ``(final_state, history)``."""
     from odc_tpu_torch.data.prefetch import device_prefetch
     from odc_tpu_torch.ops.qat import make_qat_train_step
 
@@ -119,14 +126,24 @@ def finetune_qat(
         model, lambdas, scales,
         momentum=momentum, weight_decay=weight_decay,
         stem=stem, exact=exact,
-        augment_cfg=augment_cfg, augment_warp_impl=warp_impl,
+        augment_cfg=augment_cfg, augment_warp_impl=warp_impl, dp=mesh,
     )
-    eval_step = make_engine_eval_step(model, lambdas, scales, stem=stem)
+    eval_step = make_engine_eval_step(model, lambdas, scales, stem=stem,
+                                      dp=mesh)
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        broadcast_state(state, mesh)
+
+    def save(name):
+        if writer:
+            ckpt_lib.save(os.path.join(ckpt_path, name), state)
 
     os.makedirs(ckpt_path, exist_ok=True)
-    np.save(os.path.join(ckpt_path, "int8_scales.npy"),
-            torch.as_tensor(scales).detach().cpu().numpy())
-    logger = JsonlLogger(os.path.join(ckpt_path, "metrics.jsonl"))
+    if writer:
+        np.save(os.path.join(ckpt_path, "int8_scales.npy"),
+                torch.as_tensor(scales).detach().cpu().numpy())
+    logger = JsonlLogger(
+        os.path.join(ckpt_path, "metrics.jsonl") if writer else None)
 
     generator = torch.Generator(device=device).manual_seed(seed)
     train_hist, val_hist = [], []
@@ -154,8 +171,10 @@ def finetune_qat(
                 vals.append(eval_step(state, batch))
                 weights.append((batch.img_id >= 0).float().sum())
             if vals:
-                v = torch.stack(vals).cpu().numpy().astype(np.float64)
-                w = torch.stack(weights).cpu().numpy().astype(np.float64)
+                vw = torch.stack([torch.stack(vals), torch.stack(weights)])
+                if mesh is not None:
+                    mesh.sum_(vw)
+                v, w = vw.cpu().numpy().astype(np.float64)
                 val_loss = float((v * w).sum() / max(w.sum(), 1.0))
             else:
                 val_loss = 0.0
@@ -168,12 +187,10 @@ def finetune_qat(
                 f"    Engine Validation: (Loss: {val_loss})"
             )
             if val_loss < min_val:
-                ckpt_lib.save(
-                    os.path.join(ckpt_path, "best_qat_model.ckpt"), state
-                )
+                save("best_qat_model.ckpt")
                 min_val = val_loss
 
-        ckpt_lib.save(os.path.join(ckpt_path, "final_qat_model.ckpt"), state)
+        save("final_qat_model.ckpt")
     finally:
         logger.close()
     return state, {

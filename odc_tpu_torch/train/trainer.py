@@ -27,8 +27,14 @@ Unlike the JAX package's functional ``TrainState``, the state here is
 updated IN PLACE: ``train_step`` mutates the model's parameters and BN
 buffers and the momentum buffers, and returns the same object.
 
-Validation runs batched at the pipeline's static size.  Not ported yet:
-the device mesh.
+Validation runs batched at the pipeline's static size.
+
+Data parallelism (``Trainer(mesh=DataParallel)``, ``parallel/mesh.py``):
+each rank trains on its slice of every global batch; ``fit`` broadcasts
+rank 0's state, the step divides the loss by the global batch's counts,
+sums the gradients over the ranks before the update and reports the global
+loss, BatchNorm computes global-batch statistics, the validation loss and
+the mAP hook are reduced over the ranks, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from odc_tpu_torch.losses.yolov3_loss import (
 )
 from odc_tpu_torch.ops.assign import YoloTargets, assign
 from odc_tpu_torch.ops.augment import augment_batch
+from odc_tpu_torch.parallel.mesh import all_reduce_grads, broadcast_state
 from odc_tpu_torch.train import checkpoint as ckpt_lib
 from odc_tpu_torch.train.schedule import StagedSchedule
 from odc_tpu_torch.utils.metrics import JsonlLogger
@@ -102,13 +109,16 @@ def _check_mode(mode: str, anchors=None) -> None:
             f"{None if anchors is None else len(anchors)}")
 
 
-def _loss(model, mode, y, image_hw, targets, lambdas, anchors):
-    """``(total, parts)`` of the raw head ``y`` of an ``image_hw`` batch."""
+def _loss(model, mode, y, image_hw, targets, lambdas, anchors, dp=None):
+    """``(total, parts)`` of the raw head ``y`` of an ``image_hw`` batch;
+    with ``dp``, this rank's share of the global batch's loss."""
+    count_sum = None if dp is None else dp.sum_counts
     if mode == "v3":
         return yolov3_loss(y, targets, image_hw, anchors=anchors,
-                           lambdas=lambdas)
+                           lambdas=lambdas, count_sum=count_sum)
     det = model.decode(y, image_hw)
-    return yolo_loss(det, targets, lambdas, mode=mode, anchors=anchors)
+    return yolo_loss(det, targets, lambdas, mode=mode, anchors=anchors,
+                     count_sum=count_sum)
 
 
 def sgd_update(
@@ -135,6 +145,7 @@ def make_train_step(
     augment_cfg=None,
     augment_warp_impl: str = "auto",
     on_phase: Optional[Callable[[str], None]] = None,
+    dp=None,
 ) -> Callable:
     """Build the train step: ``(state, batch, lr, generator) -> (state,
     metrics)``; ``batch`` holds tensors on the model's device, ``metrics``
@@ -151,20 +162,29 @@ def make_train_step(
 
     ``on_phase`` (measurement only): called with "augment", "forward",
     "loss", "backward", "update" as each part of the step has been
-    enqueued."""
+    enqueued.
+
+    ``dp`` (a ``parallel.DataParallel``): ``batch`` is this rank's slice of
+    the global batch.  The augmentation keeps the rank's rows of the global
+    draws, BatchNorm reduces its statistics over the ranks, the loss
+    divides by the global counts, the gradients are summed over the ranks
+    before the update (one bucket) and ``metrics`` are the global batch's,
+    equal on every rank."""
     _check_mode(mode, anchors)
     mark = on_phase or (lambda name: None)
 
     def train_step(state: TrainState, batch, lr: float, generator=None):
         model = state.model
         model.train()
+        if dp is not None:
+            dp.attach(model)
         image = batch.image
         targets = _targets_of(batch)
         if augment_cfg is not None:
             with torch.no_grad():
                 image, boxes, valid = augment_batch(
                     generator, image, batch.box, batch.valid, augment_cfg,
-                    warp_impl=augment_warp_impl,
+                    warp_impl=augment_warp_impl, dp=dp,
                 )
                 targets = assign(
                     boxes, batch.cls, valid, tuple(image.shape[1:3]), mode=mode
@@ -175,25 +195,29 @@ def make_train_step(
         y = model(image, generator=generator) if mode == "v1" else model(image)
         mark("forward")
         loss, parts = _loss(model, mode, y, tuple(image.shape[1:3]), targets,
-                            lambdas, anchors)
+                            lambdas, anchors, dp)
         mark("loss")
         loss.backward()
         mark("backward")
+        if dp is not None:
+            all_reduce_grads(model.parameters(), dp)
         sgd_update(state, float(lr), momentum, weight_decay)
         state.step += 1
         mark("update")
-
-        metrics = {
-            "loss": loss.detach(),
-            "loss_xy": parts.xy.detach(),
-            "loss_wh": parts.wh.detach(),
-            "loss_conf": parts.conf.detach(),
-            "loss_noobj": parts.noobj.detach(),
-            "loss_cls": parts.cls.detach(),
-        }
-        return state, metrics
+        return state, step_metrics(loss, parts, dp)
 
     return train_step
+
+
+def step_metrics(loss, parts, dp=None) -> Dict[str, torch.Tensor]:
+    """The step's ``loss`` and parts as 0-dim tensors; with ``dp``, summed
+    over the ranks (each rank's loss is its share of the global one)."""
+    values = torch.stack([loss, *parts]).detach()
+    if dp is not None:
+        dp.sum_(values)
+    names = ("loss", "loss_xy", "loss_wh", "loss_conf", "loss_noobj",
+             "loss_cls")
+    return dict(zip(names, values.unbind()))
 
 
 def make_eval_step(
@@ -201,13 +225,15 @@ def make_eval_step(
     lambdas: Lambdas,
     anchors=None,
     val_loss_mode: str = "per_image",
+    dp=None,
 ) -> Callable:
     """Build the val step: ``(state, batch) -> loss``.
 
     ``val_loss_mode="per_image"`` returns ``(loss_sum, image_count)`` with
     the reference's batch-size-1 semantics (per-image denominators, see
     :func:`odc_tpu_torch.losses.yolo_loss.yolo_loss_per_image`);
-    ``"batched"`` returns the batch-global masked-mean loss (one scalar)."""
+    ``"batched"`` returns the batch-global masked-mean loss (one scalar);
+    with ``dp``, this rank's share of it (the ranks' values sum to it)."""
     _check_mode(mode, anchors)
     if val_loss_mode not in ("per_image", "batched"):
         raise ValueError(f"unknown val_loss_mode {val_loss_mode!r}")
@@ -228,7 +254,8 @@ def make_eval_step(
                     model.decode(y, image_hw), targets, lambdas, mode=mode,
                     anchors=anchors)
             return losses.sum(), has_box.float().sum()
-        total, _ = _loss(model, mode, y, image_hw, targets, lambdas, anchors)
+        total, _ = _loss(model, mode, y, image_hw, targets, lambdas, anchors,
+                         dp)
         return total
 
     return eval_step
@@ -249,6 +276,7 @@ class Trainer:
         augment_cfg=None,
         eval_map_every: int = 0,
         eval_map_conf_thre: float = 0.05,
+        mesh=None,
     ) -> None:
         if not getattr(train_pipeline, "drop_remainder", True):
             raise ValueError(
@@ -258,6 +286,10 @@ class Trainer:
             )
         self.model = model
         self.device = next(model.parameters()).device
+        # ``mesh``: a ``parallel.DataParallel`` (the pipelines must carry
+        # its rank and world size), or None for one process.
+        self.dp = mesh
+        self.is_writer = mesh is None or mesh.rank == 0
         self.train_pipeline = train_pipeline
         self.val_pipeline = val_pipeline
         self.config = config
@@ -283,12 +315,12 @@ class Trainer:
         self.train_step = make_train_step(
             self.mode, self.lambdas, self.anchors,
             momentum=config.momentum, weight_decay=config.weight_decay,
-            augment_cfg=augment_cfg,
+            augment_cfg=augment_cfg, dp=mesh,
         )
         self.val_loss_mode = getattr(config, "val_loss_mode", "per_image")
         self.eval_step = make_eval_step(
             self.mode, self.lambdas, self.anchors,
-            val_loss_mode=self.val_loss_mode,
+            val_loss_mode=self.val_loss_mode, dp=mesh,
         )
         # mAP hook: every ``eval_map_every`` epochs, streaming batched VOC
         # mAP over the val pipeline's dataset at ``eval_map_conf_thre``
@@ -296,7 +328,9 @@ class Trainer:
         self.eval_map_every = int(eval_map_every)
         self.eval_map_conf_thre = float(eval_map_conf_thre)
         os.makedirs(ckpt_path, exist_ok=True)
-        self.logger = JsonlLogger(os.path.join(ckpt_path, "metrics.jsonl"))
+        self.logger = JsonlLogger(
+            os.path.join(ckpt_path, "metrics.jsonl") if self.is_writer
+            else None)
 
     def init_state(self) -> TrainState:
         """A fresh train state around the trainer's model (zero momentum,
@@ -348,8 +382,14 @@ class Trainer:
                 weights.append((batch.img_id >= 0).float().sum())
         if not losses:
             return 0.0
-        losses = torch.stack(losses).cpu().numpy().astype(np.float64)
-        weights = torch.stack(weights).cpu().numpy().astype(np.float64)
+        losses, weights = torch.stack(losses), torch.stack(weights)
+        if self.dp is not None:
+            # Every rank holds its slice of the same batches: sum each
+            # batch's values and weights over the ranks.
+            both = self.dp.sum_(torch.stack([losses, weights]))
+            losses, weights = both[0], both[1]
+        losses = losses.cpu().numpy().astype(np.float64)
+        weights = weights.cpu().numpy().astype(np.float64)
         if self.val_loss_mode == "per_image":
             val = float(losses.sum() / max(weights.sum(), 1.0))
         else:
@@ -374,6 +414,7 @@ class Trainer:
             self.val_pipeline.dataset,
             image_hw=self.val_pipeline.image_hw,
             batch_size=self.val_pipeline.batch_size,
+            dp=self.dp,
         )
         aps = np.stack([result[c] for c in det.cls_list])
         scores = {
@@ -404,14 +445,21 @@ class Trainer:
             )
             self.train_pipeline.set_image_size((size, size))
 
+    def _save(self, name: str, state: TrainState) -> None:
+        if self.is_writer:
+            ckpt_lib.save(os.path.join(self.ckpt_path, name), state)
+
     def fit(self, state: Optional[TrainState] = None) -> Tuple[TrainState, dict]:
         if state is None:
             state = self.init_state()
+        if self.dp is not None:
+            broadcast_state(state, self.dp)
 
-        with open(
-            os.path.join(self.ckpt_path, "train_config.json"), "w"
-        ) as f:
-            json.dump(as_dict(self.config), f, indent=4, default=str)
+        if self.is_writer:
+            with open(
+                os.path.join(self.ckpt_path, "train_config.json"), "w"
+            ) as f:
+                json.dump(as_dict(self.config), f, indent=4, default=str)
 
         train_hist, val_hist = [], []
         min_val = float("inf")
@@ -428,9 +476,7 @@ class Trainer:
                 f"Validation: (Loss: {val_loss})"
             )
             if val_loss < min_val:
-                ckpt_lib.save(
-                    os.path.join(self.ckpt_path, "best_model.ckpt"), state
-                )
+                self._save("best_model.ckpt", state)
                 min_val = val_loss
             if self.eval_map_every and epoch % self.eval_map_every == 0:
                 scores = self.run_map_eval(state, epoch)
@@ -439,19 +485,17 @@ class Trainer:
                     f"mAP[.5:.95]: {scores['map_50_95']:.4f}"
                 )
                 if scores["map_50_95"] > best_map:
-                    ckpt_lib.save(
-                        os.path.join(self.ckpt_path, "best_map_model.ckpt"),
-                        state,
-                    )
+                    self._save("best_map_model.ckpt", state)
                     best_map = scores["map_50_95"]
 
-        ckpt_lib.save(os.path.join(self.ckpt_path, "final_model.ckpt"), state)
+        self._save("final_model.ckpt", state)
         history = {
             "train_loss_mean_list": train_hist,
             "val_loss_list": val_hist,
         }
-        with open(
-            os.path.join(self.ckpt_path, "training_result.pkl"), "wb"
-        ) as f:
-            pickle.dump(history, f)
+        if self.is_writer:
+            with open(
+                os.path.join(self.ckpt_path, "training_result.pkl"), "wb"
+            ) as f:
+                pickle.dump(history, f)
         return state, history

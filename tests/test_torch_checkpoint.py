@@ -76,15 +76,34 @@ def ckpt_dir(tmp_path):
         path.unlink()
 
 
+@pytest.fixture(scope="module")
+def jax_ckpts(tmp_path_factory):
+    """``jax_ckpts(name)``: ``(state, path)``, ``_state`` of model ``name``
+    and its JAX ``TrainState`` checkpoint, saved once for the module (flax's
+    ``to_bytes`` of a full-width YOLOv2 takes seconds); the files are
+    removed at the end."""
+    folder = tmp_path_factory.mktemp("jax_ckpts")
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            state = _state(_MODELS[name])
+            _save_jax(folder / f"{name}.ckpt", state)
+            cache[name] = (state, folder / f"{name}.ckpt")
+        return cache[name]
+
+    yield get
+    for path in folder.glob("*.ckpt"):
+        path.unlink()
+
+
 @pytest.mark.parametrize("name", ["YOLOv2", "YOLOv1"])
-def test_reads_a_jax_train_state_bitwise(name, ckpt_dir):
+def test_reads_a_jax_train_state_bitwise(name, jax_ckpts):
     """Parameters, BN statistics, momentum and step of a JAX ``TrainState``
     (YOLOv2 at full width, YOLOv1 at 64x64) restore into the port bit for
     bit, with neither flax nor ``msgpack`` on the port's side."""
-    state = _state(_MODELS[name])
-    _save_jax(ckpt_dir / "jax.ckpt", state)
-    other = checkpoint.restore(str(ckpt_dir / "jax.ckpt"),
-                               TrainState(_MODELS[name](9)))
+    state, path = jax_ckpts(name)
+    other = checkpoint.restore(str(path), TrainState(_MODELS[name](9)))
     _assert_same(state, other)
 
 
@@ -178,10 +197,9 @@ def test_decoder_agrees_with_msgpack(name):
     assert checkpoint.unpackb(f32) == msgpack.unpackb(f32)
 
 
-def test_decoder_agrees_with_msgpack_on_a_checkpoint(ckpt_dir):
+def test_decoder_agrees_with_msgpack_on_a_checkpoint(jax_ckpts):
     """On the bytes of a JAX checkpoint, with flax's ext hook on both."""
-    _save_jax(ckpt_dir / "jax.ckpt", _state(_v1))
-    data = (ckpt_dir / "jax.ckpt").read_bytes()
+    data = jax_ckpts("YOLOv1")[1].read_bytes()
     hook = serialization._msgpack_ext_unpack
     mine = checkpoint.unpackb(data, ext_hook=hook)
     ref = msgpack.unpackb(data, ext_hook=hook, raw=False)
@@ -242,7 +260,7 @@ def test_reads_a_jax_params_only_file_bitwise(name, ckpt_dir):
 
 
 @pytest.mark.parametrize("flag", ["--resume", "--qat"])
-def test_cli_takes_a_jax_checkpoint(flag, ckpt_dir, monkeypatch):
+def test_cli_takes_a_jax_checkpoint(flag, ckpt_dir, jax_ckpts, monkeypatch):
     """``--resume`` and ``--qat`` with a JAX package checkpoint of the
     model: the state the command line hands to training (``Trainer.fit``)
     or to the fine-tune (``finetune_qat``, after a real calibration on the
@@ -251,8 +269,7 @@ def test_cli_takes_a_jax_checkpoint(flag, ckpt_dir, monkeypatch):
     from odc_tpu_torch.train import qat as tqat
     from odc_tpu_torch.train import trainer as ttrainer
 
-    state = _state(lambda seed: YOLOv2(device="cpu", seed=seed))
-    _save_jax(ckpt_dir / "jax.ckpt", state)
+    state, path = jax_ckpts("YOLOv2")
     seen = {}
 
     def fake_fit(self, st):
@@ -268,7 +285,7 @@ def test_cli_takes_a_jax_checkpoint(flag, ckpt_dir, monkeypatch):
     monkeypatch.setattr(tqat, "finetune_qat", fake_finetune)
     cli.main(["--device", "cpu", "--model", "YOLOv2", "--synthetic",
               "--epochs", "1", "--batch-size", "4", "--image-size", "64",
-              flag, str(ckpt_dir / "jax.ckpt"),
+              flag, str(path),
               "--dataset-dir", str(ckpt_dir / "voc"),
               "--ckpt-root", str(ckpt_dir / "ckpts")])
     _assert_same(state, seen["state"])

@@ -14,6 +14,7 @@ from odc_tpu.data import pipeline as jpipeline
 from odc_tpu.data import voc as jvoc
 from odc_tpu.native import loader as native_loader
 from odc_tpu_torch.data import pipeline as tpipeline
+from odc_tpu_torch.native import loader as tnative_loader
 from odc_tpu_torch.data import prefetch as tprefetch
 from odc_tpu_torch.data import voc as tvoc
 
@@ -27,10 +28,12 @@ def voc_root(tmp_path_factory):
 
 @pytest.fixture()
 def pil_only(monkeypatch):
-    """Make the JAX package decode and resize through PIL, as the port does
-    (its C++ loader resizes with another bilinear convention)."""
-    monkeypatch.setattr(native_loader, "available", lambda: False)
-    monkeypatch.setattr(native_loader, "batch_available", lambda: False)
+    """Make both packages decode and resize through PIL, their fallback
+    when the C++ loader cannot be built (PIL's bilinear filters on
+    downscale, the loader's cv2 scheme does not)."""
+    for loader in (native_loader, tnative_loader):
+        monkeypatch.setattr(loader, "available", lambda: False)
+        monkeypatch.setattr(loader, "batch_available", lambda: False)
 
 
 def test_synthetic_voc_and_index_equal_to_jax(voc_root, tmp_path):
@@ -95,6 +98,62 @@ def test_train_batches_equal_to_jax(voc_root, pil_only, hw, mode):
         _assert_batches_equal(list(ours), list(theirs))
 
 
+class _TPerSample(tvoc.VOCDataset):
+    """No raw-path flag: the pipeline decodes and resizes sample by sample."""
+
+    def __getitem__(self, index):
+        return super().__getitem__(index)
+
+
+class _JPerSample(jvoc.VOCDataset):
+    def __getitem__(self, index):
+        return super().__getitem__(index)
+
+
+@pytest.mark.parametrize("path", ["batched", "per_sample"])
+def test_train_batches_with_the_loader_equal_to_jax(voc_root, path):
+    """Both packages on their C++ loaders: pixels and targets bitwise over
+    two epochs, through one ``decode_resize_batch`` a batch or through the
+    per-sample decode and ``resize_bilinear``."""
+    assert native_loader.available() and tnative_loader.available()
+    kw = dict(image_hw=(128, 160), batch_size=4, max_boxes=8, seed=5)
+    ours_ds = tvoc.VOC(dataset_dir=voc_root).train_dataset
+    theirs_ds = jvoc.VOC(dataset_dir=voc_root).train_dataset
+    if path == "per_sample":
+        ours_ds = _TPerSample(ours_ds.img_path_list, ours_ds.annot_list)
+        theirs_ds = _JPerSample(theirs_ds.img_path_list,
+                                theirs_ds.annot_list)
+    assert tvoc.dataset_supports_raw_paths(ours_ds) == (path == "batched")
+    ours = tpipeline.DetectionPipeline(ours_ds, **kw)
+    theirs = jpipeline.DetectionPipeline(theirs_ds, **kw)
+    for _ in range(2):
+        _assert_batches_equal(list(ours), list(theirs))
+
+
+def test_undecodable_file_falls_back_per_file_as_jax(voc_root, tmp_path):
+    """A PNG under a .jpg name in a batch: the loader rejects it, that file
+    alone goes through the per-sample path (PIL decodes it), and the batch
+    still equals the JAX package's."""
+    from PIL import Image
+
+    ds = tvoc.VOC(dataset_dir=voc_root).train_dataset
+    paths = list(ds.img_path_list[:4])
+    png = tmp_path / "png.jpg"
+    with Image.open(paths[1]) as im:
+        im.save(png, format="PNG")
+    paths[1] = str(png)
+    kw = dict(image_hw=(96, 96), batch_size=4, max_boxes=8, shuffle=False,
+              prefetch=0)
+    ours = list(tpipeline.DetectionPipeline(
+        tvoc.VOCDataset(paths, ds.annot_list[:4]), **kw))
+    theirs = list(jpipeline.DetectionPipeline(
+        jvoc.VOCDataset(paths, ds.annot_list[:4]), **kw))
+    rcs = tnative_loader.decode_resize_batch(paths, (96, 96),
+                                             return_status=True)[2]
+    assert (rcs != 0).tolist() == [False, True, False, False]
+    _assert_batches_equal(ours, theirs)
+
+
 def test_val_tail_batch_padded_and_equal_to_jax(voc_root, pil_only):
     kw = dict(image_hw=(64, 64), batch_size=4, shuffle=False,
               drop_remainder=False, prefetch=0)
@@ -134,14 +193,19 @@ def test_multiscale_retarget_and_in_memory_dataset():
 
 
 def test_pipeline_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tpipeline.DetectionPipeline([], process_index=1, process_count=2)
+    """A process index out of range and a global batch the processes cannot
+    split are refused; host augmentation and sharding, ported now, are
+    accepted (their parity: tests/test_torch_host_augment.py,
+    tests/test_torch_parallel.py)."""
+    pipe = tpipeline.DetectionPipeline(
+        [], batch_size=4, process_index=1, process_count=2)
+    assert pipe.local_batch_size == 2
     with pytest.raises(ValueError, match="process_index"):
         tpipeline.DetectionPipeline([], process_index=2, process_count=2)
     with pytest.raises(ValueError, match="divisible"):
         tpipeline.DetectionPipeline([], batch_size=5, process_count=2)
-    with pytest.raises(NotImplementedError, match="host augmentation"):
-        tpipeline.DetectionPipeline([], augment=lambda *a: a)
+    augment = tpipeline.DetectionPipeline([], augment=lambda *a: a).augment
+    assert augment is not None
 
 
 def test_threaded_prefetch_stops_worker_when_consumer_breaks():

@@ -6,8 +6,8 @@ packages' ``evaluate_batched_native`` and ``evaluate_batched`` score the
 same synthetic odd-size set with the same weights.
 
 Full-width YOLOv2 with bridged JAX weights, BN calibrated on the set.  The
-JAX package decodes and resizes through PIL here, as the port does (its
-C++ loader resizes with another bilinear convention).  Thresholds sit in
+packages decode and resize through their C++ loaders, and in the
+``pil_only`` cases both through PIL (their fallback).  Thresholds sit in
 the largest gap between candidate confidences (as
 ``chip_smoke.py::_gap_threshold`` does), so ulp-level differences between
 the frameworks, or between a masked and a native-size run, cannot change
@@ -25,8 +25,9 @@ import torch
 from odc_tpu.core import ap as jap
 from odc_tpu.eval import evaluator as jeval
 from odc_tpu.native import loader as native_loader
+from odc_tpu_torch.native import loader as tnative_loader
 from odc_tpu_torch.core import ap as tap
-from odc_tpu_torch.data.voc import VOC, make_synthetic_voc
+from odc_tpu_torch.data.voc import VOC, VOCDataset, make_synthetic_voc
 from odc_tpu_torch.eval import (
     Detector, evaluate_batched, evaluate_batched_native, evaluate_model,
 )
@@ -67,12 +68,13 @@ def scene(tmp_path_factory):
     """The synthetic set (two val images a size), the bridged model, and a
     gap threshold over the candidates of both evaluators' inputs."""
     root = tmp_path_factory.mktemp("voc_eval")
-    items = []
+    items, paths = [], []
     for k, hw in enumerate(SIZES):
         sub = str(root / f"s{k}")
         make_synthetic_voc(sub, num_train=0, num_val=2, image_hw=hw, seed=k)
         val = VOC(dataset_dir=sub).val_dataset
         items += [(len(items), *val[i][1:]) for i in range(len(val))]
+        paths += val.img_path_list
     padded, _ = pad_to_bucket([img for _, img, _ in items], BUCKET)
     jmodel, variables = calibrated_yolov2(padded)
     model = port_model(variables)
@@ -90,14 +92,17 @@ def scene(tmp_path_factory):
             "bbox_list": annot["bbox_list"] + pred["bbox_list"][:2],
             "lbl_list": annot["lbl_list"] + pred["lbl_list"][:2]}))
     return dict(dataset=_ListDataset(gt_items), model=model, jmodel=jmodel,
-                jv=jax.tree.map(jnp.asarray, variables), thre=thre)
+                jv=jax.tree.map(jnp.asarray, variables), thre=thre,
+                paths=paths)
 
 
 @pytest.fixture()
 def pil_only(monkeypatch):
-    """Make the JAX package resize through PIL, as the port does."""
-    monkeypatch.setattr(native_loader, "available", lambda: False)
-    monkeypatch.setattr(native_loader, "batch_available", lambda: False)
+    """Make both packages resize through PIL, their fallback when the C++
+    loader cannot be built."""
+    for loader in (native_loader, tnative_loader):
+        monkeypatch.setattr(loader, "available", lambda: False)
+        monkeypatch.setattr(loader, "batch_available", lambda: False)
 
 
 # -- AP math --------------------------------------------------------------
@@ -231,6 +236,28 @@ def test_evaluators_match_jax(scene, pil_only, evaluator):
         ours = evaluate_batched(det, dataset, image_hw=BUCKET, batch_size=4)
         ref = jeval.evaluate_batched(jdet, dataset, image_hw=BUCKET,
                                      batch_size=4)
+    np.testing.assert_array_equal(ours["level_list"], ref["level_list"])
+    for c in det.cls_list:
+        np.testing.assert_allclose(ours[c], ref[c], rtol=1e-6, atol=1e-9,
+                                   err_msg=c)
+    assert sum(bool(ref[c].any()) for c in det.cls_list) >= 2
+
+
+@pytest.mark.parametrize("source", ["jpeg_paths", "in_memory"])
+def test_evaluate_batched_with_the_loader_matches_jax(scene, source):
+    """Both packages on their C++ loaders: from the JPEG paths (one
+    ``decode_resize_batch`` a batch) or from decoded images (the loader's
+    ``resize_bilinear``), the mAP vectors agree within rtol 1e-6."""
+    assert native_loader.available() and tnative_loader.available()
+    dataset, thre = scene["dataset"], scene["thre"]
+    if source == "jpeg_paths":
+        dataset = VOCDataset(scene["paths"],
+                             [annot for _, _, annot in dataset.items])
+    det = Detector(scene["model"], conf_thre=thre, max_keep=16)
+    jdet = jeval.Detector(scene["jmodel"], scene["jv"], conf_thre=thre,
+                          max_keep=16)
+    ours = evaluate_batched(det, dataset, image_hw=BUCKET, batch_size=4)
+    ref = jeval.evaluate_batched(jdet, dataset, image_hw=BUCKET, batch_size=4)
     np.testing.assert_array_equal(ours["level_list"], ref["level_list"])
     for c in det.cls_list:
         np.testing.assert_allclose(ours[c], ref[c], rtol=1e-6, atol=1e-9,

@@ -42,7 +42,7 @@ from odc_tpu_torch.train import __main__ as cli
 from odc_tpu_torch.train import checkpoint
 from odc_tpu_torch.train import schedule as tschedule
 from odc_tpu_torch.train import trainer as ttrainer
-from torch_port_helpers import replay_params
+from torch_port_helpers import fresh_yolov2, replay_params
 
 HW = (96, 96)
 B, M = 4, 8
@@ -203,7 +203,7 @@ def _jax_state(tree):
 
 
 def _torch_state(tree):
-    state = ttrainer.TrainState(YOLOv2(dtype=torch.float32, device="cpu"))
+    state = ttrainer.TrainState(fresh_yolov2())
     state.load_state_dict(train_state_from_jax(tree))
     return state
 
@@ -383,7 +383,9 @@ def test_train_step_with_device_augmentation_matches_jax(runs, monkeypatch):
     params = replay_params(aug_key, B, jaug.AugmentConfig(**cfg_kw), HW)
     calls = []
 
-    def replayed(generator, images, boxes, valid, cfg, warp_impl="auto"):
+    def replayed(generator, images, boxes, valid, cfg, warp_impl="auto",
+                 dp=None):
+        assert dp is None  # one process
         out = taug.apply_augment(images, boxes, valid, params, cfg, warp_impl)
         calls.append((warp_impl, out))
         return out
@@ -537,7 +539,7 @@ def test_multiscale_policies(voc, tmp_path, policy, epochs, repicks):
                          multiscale_sizes=(64, 96), multiscale_policy=policy)
     train_pipe, val_pipe = _pipes(voc)
     trainer = ttrainer.Trainer(
-        YOLOv2(device="cpu"), train_pipe, val_pipe, config, str(tmp_path)
+        fresh_yolov2(), train_pipe, val_pipe, config, str(tmp_path)
     )
     seen = []
     train_pipe.set_image_size = lambda hw: seen.append(hw)
@@ -563,7 +565,7 @@ def test_trainer_rejections(voc, tmp_path, kwargs, error, match):
     if kwargs.pop("train_drop_remainder", True) is False:
         train_pipe.drop_remainder = False
     with pytest.raises(error, match=match):
-        ttrainer.Trainer(YOLOv2(device="cpu"), train_pipe, val_pipe,
+        ttrainer.Trainer(fresh_yolov2(), train_pipe, val_pipe,
                          TrainConfig(), str(tmp_path), **kwargs)
 
 
@@ -598,7 +600,7 @@ def test_trainer_map_hook(voc, tmp_path, monkeypatch):
     monkeypatch.setattr(teval, "evaluate_batched", spy)
     trainer.fit()
     assert scored == [(classes, 0.01, 4, dict(image_hw=(64, 64),
-                                              batch_size=4))] * 2
+                                              batch_size=4, dp=None))] * 2
     rows = [json.loads(line)
             for line in (ckpts / "metrics.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in rows] == ["train_epoch", "val_epoch",
@@ -611,14 +613,19 @@ def test_trainer_map_hook(voc, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize(
     "argv, message",
-    [(["--augment", "host"], "host-augment slice"),
-     (["--data-parallel", "2"], "data-parallel slice"),
-     (["--model-parallel", "2"], "data-parallel slice"),
+    [(["--augment", "sideways"], "invalid choice"),
+     (["--data-parallel", "2"], "differs from the 1 process"),
+     (["--model-parallel", "2"], "model parallelism (2) is not supported"),
      (["--image-size", "100"], "multiple of 32")],
 )
 def test_cli_names_the_later_slice(argv, message, capsys):
+    """Usage errors exit 2 before any training: a data-parallel size other
+    than the launched world size (one process here) and a model axis,
+    which has no counterpart on one card.  (``--augment host`` and
+    ``--data-parallel`` are ported now: ``test_cli_defaults`` and
+    ``tests/test_torch_parallel.py``.)"""
     with pytest.raises(SystemExit) as exc:
-        cli.parse_args(argv)
+        cli.main(argv)
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
 
@@ -650,14 +657,17 @@ def test_cli_qat_is_yolov2_only(model, capsys):
 def test_cli_qat_on_the_cpu(tmp_path):
     """``python -m odc_tpu_torch.train --qat`` end to end in a subprocess on
     a checkpoint of the port's seeded YOLOv2: calibration, one exact-mode
-    epoch with device augmentation, and the four outputs."""
+    epoch with device augmentation, and the four outputs.  A synthetic VOC
+    of four train and four val images: one step, one val batch."""
     ckpt = tmp_path / "start.ckpt"
-    checkpoint.save(str(ckpt), ttrainer.TrainState(YOLOv2(device="cpu")))
+    checkpoint.save(str(ckpt), ttrainer.TrainState(fresh_yolov2()))
+    make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=4)
     try:
         proc = subprocess.run(
             [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
-             "--model", "YOLOv2", "--synthetic", "--image-size", "64",
+             "--model", "YOLOv2", "--image-size", "64",
              "--batch-size", "4", "--qat", str(ckpt), "--qat-epochs", "1",
+             "--augment", "device",
              "--dataset-dir", str(tmp_path / "voc"),
              "--ckpt-root", str(tmp_path / "ckpts")],
             cwd=REPO, capture_output=True, text=True, timeout=600,
@@ -687,9 +697,12 @@ def test_cli_parses_the_ported_models(model):
 
 
 def test_cli_defaults():
-    """``--model`` defaults to YOLOv1, as the JAX package's ``train.py``."""
+    """``--model`` defaults to YOLOv1 and ``--augment`` to ``host``, as the
+    JAX package's ``train.py``; one process (``--data-parallel`` -1)."""
     args = cli.parse_args([])
-    assert (args.model, args.device, args.augment) == ("YOLOv1", "cuda", "device")
+    assert (args.model, args.device, args.augment) == ("YOLOv1", "cuda", "host")
+    assert (args.data_parallel, args.model_parallel) == (-1, 1)
+    assert cli.parse_args(["--augment", "device"]).augment == "device"
     assert cli.parse_args(["--no-augment"]).augment == "none"
     assert (args.eval_map, args.eval_map_every, args.eval_map_conf) == (
         False, 0, 0.05)
@@ -726,7 +739,7 @@ def test_cli_eval_map_conf_reaches_both_uses(tmp_path, monkeypatch):
             seen["detector"] = (list(cls_list), conf_thre)
             self.cls_list = list(cls_list)
 
-    def fake_evaluate(det, dataset, image_hw, batch_size):
+    def fake_evaluate(det, dataset, image_hw, batch_size, dp):
         seen["evaluate"] = (len(dataset), image_hw)
         return {c: np.zeros(10) for c in det.cls_list}
 
@@ -745,11 +758,13 @@ def test_cli_eval_map_conf_reaches_both_uses(tmp_path, monkeypatch):
 
 
 def test_cli_trains_on_the_cpu(tmp_path):
-    """``python -m odc_tpu_torch.train`` end to end in a subprocess."""
+    """``python -m odc_tpu_torch.train`` end to end in a subprocess, on a
+    synthetic VOC of four train and four val images."""
+    make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=4)
     proc = subprocess.run(
         [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
          "--model", "YOLOv2",
-         "--synthetic", "--epochs", "1", "--batch-size", "4",
+         "--epochs", "1", "--batch-size", "4",
          "--image-size", "64", "--augment", "device",
          "--dataset-dir", str(tmp_path / "voc"),
          "--ckpt-root", str(tmp_path / "ckpts")],
@@ -767,11 +782,13 @@ def test_cli_trains_on_the_cpu(tmp_path):
 def test_cli_trains_yolov1_on_the_cpu(tmp_path):
     """``--model YOLOv1`` at 64x64 (grid 2, from ``--image-size``) trains
     one epoch with device augmentation and dropout, and scores mAP with
-    ``--eval-map-every``."""
+    ``--eval-map-every`` (four train and four val images)."""
+    make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=4)
     proc = subprocess.run(
         [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
-         "--model", "YOLOv1", "--synthetic", "--epochs", "1",
+         "--model", "YOLOv1", "--epochs", "1",
          "--image-size", "64", "--batch-size", "4", "--eval-map-every", "1",
+         "--augment", "device",
          "--dataset-dir", str(tmp_path / "voc"),
          "--ckpt-root", str(tmp_path / "ckpts")],
         cwd=REPO, capture_output=True, text=True, timeout=600,

@@ -5,10 +5,9 @@ hook on a YOLOv1, against the JAX package on the CPU, f32, full width at
 
 Weights: ``test_torch_yolov1.jax_v1_init`` (jitted flax inits) carried into
 the port through the bridge, BN calibrated on the set's images resized to
-96x96, dropout off.  Images:
-synthetic VOC JPEGs at 375x500, 500x375 and 333x500, resized through PIL
-on both sides (the JAX package's C++ loader resizes with another bilinear
-convention).  The conf threshold sits in the largest gap between the
+96x96, dropout off.  Images: synthetic VOC JPEGs at 375x500, 500x375 and
+333x500, resized on both sides through the C++ loaders and, in the
+``pil_only`` cases, through PIL (the fallback of both).  The conf threshold sits in the largest gap between the
 candidates' confidences, so ulp-level differences cannot change which
 boxes survive."""
 
@@ -27,6 +26,7 @@ from odc_tpu.models.backbones.googlenet import (
     GoogLeNetBackbone as JaxGoogLeNet,
 )
 from odc_tpu.native import loader as native_loader
+from odc_tpu_torch.native import loader as tnative_loader
 from odc_tpu_torch.config import TrainConfig
 from odc_tpu_torch.core import ap as tap
 from odc_tpu_torch.data.pipeline import DetectionPipeline
@@ -95,23 +95,32 @@ def scene(tmp_path_factory):
     conf = 1 / (1 + np.exp(-y[..., 4:10:5].astype(np.float64)))
     thre = gap_threshold(conf, conf.size // 8, conf.size // 2)
     # Ground truth: the synthetic rectangles, plus two of each image's own
-    # detections with their labels, so several classes score AP > 0.
+    # detections with their labels on each resize (the C++ loader's, then
+    # PIL's: the random network's detections move with the resize), so
+    # several classes score AP > 0 on either.
     det = Detector(model, conf_thre=thre)
+    preds = [det.detect(img) for _, img, _ in items]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative_loader, "available", lambda: False)
+        pil_preds = [det.detect(img) for _, img, _ in items]
     gt_items = []
-    for idx, img, annot in items:
-        pred = det.detect(img)
+    for (idx, img, annot), pred, pil in zip(items, preds, pil_preds):
         gt_items.append((idx, img, {
-            "bbox_list": annot["bbox_list"] + pred["bbox_list"][:2],
-            "lbl_list": annot["lbl_list"] + pred["lbl_list"][:2]}))
+            "bbox_list": (annot["bbox_list"] + pred["bbox_list"][:2]
+                          + pil["bbox_list"][:2]),
+            "lbl_list": (annot["lbl_list"] + pred["lbl_list"][:2]
+                         + pil["lbl_list"][:2])}))
     return dict(dataset=_ListDataset(gt_items), model=model, jmodel=jmodel,
                 jv=jv, thre=thre, resized=resized, y=y, feat=feat)
 
 
 @pytest.fixture()
 def pil_only(monkeypatch):
-    """Make the JAX package resize through PIL, as the port does."""
-    monkeypatch.setattr(native_loader, "available", lambda: False)
-    monkeypatch.setattr(native_loader, "batch_available", lambda: False)
+    """Make both packages resize through PIL, their fallback when the C++
+    loader cannot be built."""
+    for loader in (native_loader, tnative_loader):
+        monkeypatch.setattr(loader, "available", lambda: False)
+        monkeypatch.setattr(loader, "batch_available", lambda: False)
 
 
 def test_forward_matches_jax(scene):
@@ -159,6 +168,13 @@ def test_detect_matches_jax(scene, pil_only):
     assert 0 < kept < 2 * GRID * GRID * len(scene["dataset"])
 
 
+def test_detect_with_the_loader_matches_jax(scene):
+    """``test_detect_matches_jax`` with both packages resizing through their
+    C++ loaders (the threshold's gap was found on the loader's resize)."""
+    assert native_loader.available() and tnative_loader.available()
+    test_detect_matches_jax(scene, None)
+
+
 def test_evaluate_batched_matches_jax(scene, pil_only):
     """The slice as a whole: the port's ``evaluate_batched`` at the
     model's size gives the JAX package's mAP vectors within rtol 1e-6 on
@@ -175,6 +191,12 @@ def test_evaluate_batched_matches_jax(scene, pil_only):
         np.testing.assert_allclose(ours[c], ref[c], rtol=1e-6, atol=1e-9,
                                    err_msg=c)
     assert sum(bool(ref[c].any()) for c in det.cls_list) >= 2
+
+
+def test_evaluate_batched_with_the_loader_matches_jax(scene):
+    """``test_evaluate_batched_matches_jax`` with both C++ loaders on."""
+    assert native_loader.available() and tnative_loader.available()
+    test_evaluate_batched_matches_jax(scene, None)
 
 
 def test_v1_evaluation_refusals(scene):

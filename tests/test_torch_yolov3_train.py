@@ -27,6 +27,7 @@ from odc_tpu.eval import evaluator as jeval
 from odc_tpu.losses import yolov3_loss as jloss
 from odc_tpu.losses.yolo_loss import Lambdas as JLambdas
 from odc_tpu.native import loader as native_loader
+from odc_tpu_torch.native import loader as tnative_loader
 from odc_tpu.ops.assign import YoloTargets as JTargets
 from odc_tpu.ops.assign import assign_numpy
 from odc_tpu.ops.decode import YOLOV3_ANCHORS
@@ -345,14 +346,18 @@ def scene(tmp_path_factory):
         val = VOC(dataset_dir=sub).val_dataset
         items += [(len(items), *val[i][1:]) for i in range(len(val))]
     _, jmodel, variables, model = v3_setup()
-    resized = np.stack([_resize_host(img, HW) for _, img, _ in items])
-    with torch.no_grad():
-        conf = model.decode(model(torch.tensor(resized))).conf.numpy()
-    thre = gap_threshold(conf, conf.size // 8, conf.size // 2)
-    det = Detector(model, conf_thre=thre)
+    with pytest.MonkeyPatch.context() as mp:
+        # The threshold and the detections were found on PIL's resize (the
+        # port's only one before its C++ loader).
+        mp.setattr(tnative_loader, "available", lambda: False)
+        resized = np.stack([_resize_host(img, HW) for _, img, _ in items])
+        with torch.no_grad():
+            conf = model.decode(model(torch.tensor(resized))).conf.numpy()
+        thre = gap_threshold(conf, conf.size // 8, conf.size // 2)
+        det = Detector(model, conf_thre=thre)
+        preds = [det.detect(img) for _, img, _ in items]
     gt_items = []
-    for idx, img, annot in items:
-        pred = det.detect(img)
+    for (idx, img, annot), pred in zip(items, preds):
         gt_items.append((idx, img, {
             "bbox_list": annot["bbox_list"] + pred["bbox_list"][:2],
             "lbl_list": annot["lbl_list"] + pred["lbl_list"][:2]}))
@@ -362,9 +367,11 @@ def scene(tmp_path_factory):
 
 @pytest.fixture()
 def pil_only(monkeypatch):
-    """Make the JAX package resize through PIL, as the port does."""
-    monkeypatch.setattr(native_loader, "available", lambda: False)
-    monkeypatch.setattr(native_loader, "batch_available", lambda: False)
+    """Make both packages resize through PIL, their fallback when the C++
+    loader cannot be built."""
+    for loader in (native_loader, tnative_loader):
+        monkeypatch.setattr(loader, "available", lambda: False)
+        monkeypatch.setattr(loader, "batch_available", lambda: False)
 
 
 def test_detector_v3_contract(scene):
@@ -410,6 +417,34 @@ def test_evaluate_batched_matches_jax(scene, pil_only):
     assert sum(bool(ref[c].any()) for c in det.cls_list) >= 2
 
 
+def test_detect_with_the_loader_matches_jax(scene):
+    """``Detector.detect`` at 375x500, 500x375 and 333x500 with both
+    packages resizing through their C++ loaders: labels equal, confidences
+    and boxes within the heads' distance (7e-5) carried through the
+    sigmoid and exp of decode_v3 and the inverse resize (up to 500 / 64)."""
+    assert native_loader.available() and tnative_loader.available()
+    det = Detector(scene["model"], conf_thre=scene["thre"])
+    jdet = jeval.Detector(scene["jmodel"], scene["jv"],
+                          conf_thre=scene["thre"])
+    kept = 0
+    for _, img, _ in scene["dataset"].items:
+        got, ref = det.detect(img), jdet.detect(img)
+        assert got["lbl_list"] == ref["lbl_list"]
+        kept += len(got["lbl_list"])
+        for key in ("conf_score_list", "cls_spec_conf_score_list"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=2e-5)
+        np.testing.assert_allclose(
+            np.asarray(got["bbox_list"]).reshape(-1, 4),
+            np.asarray(ref["bbox_list"]).reshape(-1, 4), rtol=1e-4, atol=1e-2)
+    assert kept > 0
+
+
+def test_evaluate_batched_with_the_loader_matches_jax(scene):
+    """``test_evaluate_batched_matches_jax`` with both C++ loaders on."""
+    assert native_loader.available() and tnative_loader.available()
+    test_evaluate_batched_matches_jax(scene, None)
+
+
 def test_v3_evaluation_refusals(scene):
     """The YOLOv2 int8 engine and the native-size evaluator are refused
     for a YOLOv3 (its int8 is the model's ``int8_dynamic``)."""
@@ -445,7 +480,7 @@ def test_cli_trains_yolov3_on_the_cpu(tmp_path, ckpt_root):
     proc = subprocess.run(
         [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
          "--model", "YOLOv3", "--epochs", "1", "--batch-size", "4",
-         "--image-size", "64", "--dtype", "float32",
+         "--image-size", "64", "--dtype", "float32", "--augment", "device",
          "--dataset-dir", str(tmp_path / "voc"),
          "--ckpt-root", str(ckpt_root)],
         cwd=REPO, capture_output=True, text=True, timeout=600,
