@@ -91,7 +91,22 @@ just before and read just after:
 * data parallelism — phase dp: a one-rank NCCL group, the data-parallel
   YOLOv2-416 train step at batch 32 with device augmentation against the
   plain step (f32 losses within rtol 1e-5), bf16 ms/step of both and the
-  gradient all-reduce's device time; a failed NCCL init fails the run.
+  gradient all-reduce's device time; a failed NCCL init fails the run;
+* remat — phase remat: the YOLOv2-416 batch-32 train step with device
+  augmentation with and without ``remat`` from one init and one batch (f32
+  losses within rtol 1e-5, BN running statistics equal after the step;
+  bf16 ms/step, peak device memory and img/s through ``Throughput``, 1 warp
+  launch a step);
+* the mesh's model axis — phase mp: ``--model-parallel 2`` on YOLOv2-416 at
+  batch 32, two spawned processes sharing the card over gloo (NCCL refuses
+  two ranks on one device): the f32 loss within rtol 1e-5 and the gathered
+  update within relative l2 1e-2 of the one-process step's, bf16 ms/step
+  (gloo stages every collective through the host: not a measure of model
+  parallelism's speed), 1 warp launch a step on each rank;
+* YOLOv3's prefix probes — phase probe: each ``stop_after`` prefix of
+  YOLOv3-416 bf16 at batch 256 timed with CUDA events, per-stage ms as
+  differences of adjacent prefixes, one call traced by
+  ``utils.profiler_trace`` into a temporary directory.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with each kernel's launches, error and times, and as its last line
@@ -3515,15 +3530,9 @@ def phase_dp(counters):
 
     import torch.distributed as dist
 
-    from odc_tpu_torch.data.pipeline import DetectionPipeline
-    from odc_tpu_torch.data.prefetch import device_prefetch
-    from odc_tpu_torch.losses.yolo_loss import Lambdas
-    from odc_tpu_torch.models import get_model
-    from odc_tpu_torch.ops.augment import AugmentConfig
     from odc_tpu_torch.parallel import (
-        all_reduce_grads, broadcast_state, maybe_initialize_distributed,
+        all_reduce_grads, maybe_initialize_distributed,
     )
-    from odc_tpu_torch.train.trainer import TrainState, make_train_step
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3533,37 +3542,17 @@ def phase_dp(counters):
         rank=0)
     res = {"backend": dist.get_backend(), "world_size": dp.world_size,
            "device": str(dp.device)}
-    launches = {k: 0 for k in counters}
     try:
         if res["backend"] != "nccl":
             raise AssertionError(f"dp: backend {res['backend']}, not nccl")
-        data = _RectanglesOnNoise(TRAIN_BATCH, HW, SEED + 9)
-        pipe = DetectionPipeline(data, HW, TRAIN_BATCH, 64, seed=SEED,
-                                 process_index=dp.rank,
-                                 process_count=dp.world_size)
-        batches = device_prefetch(pipe, dp.device)
-        batch = next(batches)
-        batches.close()
-        cfg = AugmentConfig()
-
-        def run(dtype, use_dp, steps=1):
-            model = get_model("YOLOv2", dtype=dtype, device=DEVICE,
-                              seed=SEED, image_size=HW)
-            state = TrainState(model)
-            if use_dp:
-                broadcast_state(state, dp)
-            step = make_train_step("v2", Lambdas(), model.anchors,
-                                   momentum=0.9, augment_cfg=cfg,
-                                   dp=dp if use_dp else None)
-            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-            return model, state, step, gen
-
+        batch = _one_batch(dp.rank, dp.world_size)
         losses = {}
         for use_dp in (False, True):
-            model, state, step, gen = run(torch.float32, use_dp)
+            state, step, gen = _v2_step(torch.float32,
+                                        dp=dp if use_dp else None)
             _, metrics = step(state, batch, 1e-3, gen)
             losses[use_dp] = float(metrics["loss"])
-            del model, state
+            del state, step
         rel = abs(losses[True] - losses[False]) / abs(losses[False])
         res["f32_loss_plain"], res["f32_loss_dp"] = losses[False], losses[True]
         res["f32_loss_rel_diff"] = rel
@@ -3573,30 +3562,18 @@ def phase_dp(counters):
         torch.cuda.empty_cache()
 
         for use_dp in (False, True):
-            model, state, step, gen = run(torch.bfloat16, use_dp)
-            for _ in range(3):
-                step(state, batch, 1e-3, gen)
-            sync()
+            state, step, gen = _v2_step(torch.bfloat16,
+                                        dp=dp if use_dp else None)
+            ms, _, launches = _timed_steps(state, step, batch, gen,
+                                           counters, TIMED_STEPS)
+            res["bf16_ms_per_step_" + ("dp" if use_dp else "plain")] = ms
             if use_dp:
-                for w in counters.values():
-                    w.launches = 0
-            times = []
-            for _ in range(TIMED_STEPS):
-                t = time.perf_counter()
-                step(state, batch, 1e-3, gen)
-                sync()
-                times.append((time.perf_counter() - t) * 1e3)
-            if use_dp:
-                launches = {k: w.launches for k, w in counters.items()}
-            res["bf16_ms_per_step_" + ("dp" if use_dp else "plain")] = (
-                statistics.median(times))
-            if use_dp:
-                params = list(model.parameters())
+                params = list(state.model.parameters())
                 res["grad_bucket_mb"] = sum(
                     p.numel() for p in params) * 4 / 1e6
                 res["all_reduce_ms"] = time_ms(
                     lambda: all_reduce_grads(params, dp), TIMED_STEPS)
-            del model, state
+            del state, step
             torch.cuda.empty_cache()
         if launches["warp_affine"] != TIMED_STEPS:
             raise AssertionError(f"dp: warp launches {launches}, want "
@@ -3605,6 +3582,281 @@ def phase_dp(counters):
         dist.destroy_process_group()
     print(json.dumps({"phase": "dp", **res}))
     return launches
+
+
+# This slice's phases (remat, mp, probe): the rematerialized YOLOv2
+# training step, the mesh's model axis in two processes on the one card,
+# and YOLOv3's prefix probes with a profiler trace.
+MP_STEPS = 5
+PROBE_ITERS = 3
+
+
+def _one_batch(rank=0, world=1):
+    """The data-parallel phases' batch: 32 rectangles-on-noise images at
+    416x416 through the pipeline (the data index's rows), on the card."""
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.data.prefetch import device_prefetch
+
+    data = _RectanglesOnNoise(TRAIN_BATCH, HW, SEED + 9)
+    pipe = DetectionPipeline(data, HW, TRAIN_BATCH, 64, seed=SEED,
+                             process_index=rank, process_count=world)
+    batches = device_prefetch(pipe, torch.device(DEVICE))
+    batch = next(batches)
+    batches.close()
+    return batch
+
+
+def _v2_step(dtype, remat=False, dp=None, shard=False):
+    """A YOLOv2-416 train state and step (momentum 0.9, device
+    augmentation, ``dp``'s mesh; ``shard``: the model's wide kernels
+    sharded over its model axis) and its augmentation generator."""
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.parallel import broadcast_state, shard_model
+    from odc_tpu_torch.train.trainer import TrainState, make_train_step
+
+    model = get_model("YOLOv2", dtype=dtype, device=DEVICE, seed=SEED,
+                      image_size=HW, remat=remat)
+    if shard:
+        shard_model(model, dp)
+    state = TrainState(model)
+    if dp is not None:
+        broadcast_state(state, dp)
+    step = make_train_step("v2", Lambdas(), model.anchors, momentum=0.9,
+                           augment_cfg=AugmentConfig(), dp=dp)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return state, step, gen
+
+
+def _timed_steps(state, step, batch, gen, counters, steps):
+    """Median ms/step over ``steps`` steps after two warm-up steps, the
+    ``Throughput`` meter's img/s over them, and the kernels' launches in
+    the timed steps (counts zeroed just before, read just after)."""
+    from odc_tpu_torch.utils import Throughput
+
+    for _ in range(2):
+        step(state, batch, 1e-3, gen)
+    sync()
+    meter = Throughput()
+    for w in counters.values():
+        w.launches = 0
+    times = []
+    meter.start()
+    for _ in range(steps):
+        t = time.perf_counter()
+        step(state, batch, 1e-3, gen)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        meter.update(batch.image.shape[0])
+    launches = {k: w.launches for k, w in counters.items()}
+    return statistics.median(times), meter.images_per_sec, launches
+
+
+def phase_remat(counters):
+    """``YOLOv2(remat=True)``: the YOLOv2-416 train step at batch 32 with
+    device augmentation, with and without remat, from one init and one
+    batch.  f32: the losses within rtol 1e-5 and the BN running statistics
+    after the step equal (the recomputation must not move them again).
+    bf16: ms/step, peak device memory and img/s (``Throughput``) of both.
+    Returns the kernels' launches of the timed bf16 steps of both."""
+    res = {}
+    batch = _one_batch()
+    stats = {}
+    for remat in (False, True):
+        state, step, gen = _v2_step(torch.float32, remat)
+        _, metrics = step(state, batch, 1e-3, gen)
+        res[f"f32_loss_{'remat' if remat else 'plain'}"] = float(
+            metrics["loss"])
+        stats[remat] = {k: v.clone() for k, v in state.model.named_buffers()}
+        del state, step
+        torch.cuda.empty_cache()
+    plain, remat = res["f32_loss_plain"], res["f32_loss_remat"]
+    res["f32_loss_rel_diff"] = abs(remat - plain) / abs(plain)
+    differ = [k for k, v in stats[False].items()
+              if not torch.equal(v, stats[True][k])]
+    res["running_stats_differ"] = len(differ)
+    if not res["f32_loss_rel_diff"] <= 1e-5:
+        raise AssertionError(f"remat: f32 loss {remat} vs {plain}")
+    if differ:
+        raise AssertionError(f"remat: running statistics differ: "
+                             f"{differ[:4]}")
+    launches = {k: 0 for k in counters}
+    for remat in (False, True):
+        label = "remat" if remat else "plain"
+        state, step, gen = _v2_step(torch.bfloat16, remat)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        ms, img_s, got = _timed_steps(state, step, batch, gen, counters,
+                                      TIMED_STEPS)
+        res[f"bf16_ms_per_step_{label}"] = ms
+        res[f"bf16_img_s_{label}"] = img_s
+        res[f"peak_gb_{label}"] = torch.cuda.max_memory_allocated() / 1e9
+        if got["warp_affine"] != TIMED_STEPS:
+            raise AssertionError(f"remat: warp launches {got}")
+        _add(launches, got)
+        del state, step
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "remat", **res}))
+    return launches
+
+
+def _mp_worker(rank, port, out_dir):
+    """One rank of phase mp (a spawned process): a (1, 2) mesh over gloo
+    with both ranks on ``cuda:0``."""
+    import torch.distributed as dist
+
+    from odc_tpu_torch.ops.cuda.warp_kernel import warp_affine
+    from odc_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        dp = make_mesh(maybe_initialize_distributed(device=DEVICE), 2)
+        res["backend"] = dist.get_backend()
+        res["mesh"] = [dp.world_size, dp.model_size]
+        batch = _one_batch(dp.rank, dp.world_size)
+        if dp.is_writer:  # the one-process step, from the same init
+            state, step, gen = _v2_step(torch.float32)
+            before = {n: p.detach().clone()
+                      for n, p in state.model.named_parameters()}
+            _, metrics = step(state, batch, 1e-3, gen)
+            res["f32_loss_plain"] = float(metrics["loss"])
+            want = {n: p.detach() - before[n]
+                    for n, p in state.model.named_parameters()}
+            del state, step
+        state, step, gen = _v2_step(torch.float32, dp=dp, shard=True)
+        res["sharded_params"] = sum(
+            getattr(m, "model_shard", None) is not None
+            for m in state.model.modules())
+        _, metrics = step(state, batch, 1e-3, gen)
+        res["f32_loss_mp"] = float(metrics["loss"])
+        after = state.state_dict()["model"]  # gathered
+        if dp.is_writer:
+            num = den = 0.0
+            worst = (0.0, "")
+            for n, w in want.items():
+                d = float((after[n] - before[n] - w).norm())
+                num += d * d
+                den += float(w.norm()) ** 2
+                worst = max(worst, (d / max(float(w.norm()), 1e-30), n))
+            res["f32_update_rel_l2"] = (num / den) ** 0.5
+            res["f32_update_worst_leaf"] = list(worst)
+            del want, before
+        del state, step, after
+        torch.cuda.empty_cache()
+        state, step, gen = _v2_step(torch.bfloat16, dp=dp, shard=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms, img_s, launches = _timed_steps(
+            state, step, batch, gen, {"warp_affine": warp_affine}, MP_STEPS)
+        res.update(bf16_ms_per_step=ms, bf16_img_s=img_s,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=launches)
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+
+
+def phase_mp(counters):
+    """The mesh's model axis (``--model-parallel 2``): YOLOv2-416 at batch
+    32 with device augmentation on a (data 1, model 2) mesh of two
+    processes sharing the one card over gloo (NCCL refuses two ranks on one
+    device; gloo stages every collective through the host).  f32: the loss
+    within rtol 1e-5 of the one-process step's and the gathered update
+    within relative l2 1e-2 of its update; bf16: ms/step, which measures
+    this staging, not model parallelism's speed.  Returns the warp's
+    launches in both ranks' timed steps."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=_mp_worker, args=(r, port, out_dir))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r in range(2):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {})
+    print(json.dumps({"phase": "mp", "ranks": ranks,
+                      "note": "bf16 ms/step of two processes on one card "
+                      "over gloo (host-staged collectives): not a measure "
+                      "of model parallelism's speed"}))
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"mp: worker exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    r0 = ranks[0]
+    rel = abs(r0["f32_loss_mp"] - r0["f32_loss_plain"]) / abs(
+        r0["f32_loss_plain"])
+    if not rel <= 1e-5:
+        raise AssertionError(f"mp: loss {r0['f32_loss_mp']} vs "
+                             f"{r0['f32_loss_plain']} (rel {rel:.2e})")
+    if not r0["f32_update_rel_l2"] <= 1e-2:
+        raise AssertionError(f"mp: update rel l2 {r0['f32_update_rel_l2']}")
+    if ranks[1]["f32_loss_mp"] != r0["f32_loss_mp"]:
+        raise AssertionError("mp: the ranks report different losses")
+    launches = {k: 0 for k in counters}
+    for r in ranks:
+        if r["launches"]["warp_affine"] != MP_STEPS:
+            raise AssertionError(f"mp: warp launches {r['launches']}")
+        _add(launches, r["launches"])
+    return launches
+
+
+def phase_probe():
+    """YOLOv3-416 bf16 at batch 256, eval mode, BN calibrated: each
+    ``stop_after`` prefix (and the full forward) timed with CUDA events
+    over a few calls; per-stage ms as differences of adjacent prefixes.
+    One call runs under ``utils.profiler_trace`` into a temporary
+    directory, which must then hold the trace."""
+    from odc_tpu_torch.models import get_model
+    from odc_tpu_torch.models.yolov3 import PROBES
+    from odc_tpu_torch.utils import profiler_trace
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    x = torch.randint(0, 256, (V3_BATCH, *V3_HW, 3), generator=gen,
+                      dtype=torch.uint8).to(DEVICE)
+    model = get_model("YOLOv3", dtype=torch.bfloat16, device=DEVICE,
+                      seed=SEED, image_size=V3_HW).eval()
+    _calibrate_bn(model, x[:8], torch.Generator().manual_seed(SEED + 31))
+    prefix = {}
+    with torch.no_grad():
+        for probe in (*PROBES, None):
+            prefix[probe or "full"] = time_ms(
+                lambda: model(x, stop_after=probe), PROBE_ITERS, warmup=1)
+        names = list(prefix)
+        stages = {names[0]: prefix[names[0]]}
+        for a, b in zip(names, names[1:]):
+            stages[b] = prefix[b] - prefix[a]
+        with tempfile.TemporaryDirectory() as log_dir:
+            with profiler_trace(log_dir):
+                model(x)
+                sync()
+            traces = [(f, os.path.getsize(os.path.join(log_dir, f)))
+                      for f in os.listdir(log_dir)]
+    res = {"batch": V3_BATCH, "prefix_ms": prefix, "stage_ms": stages,
+           "sum_of_stages_ms": sum(stages.values()),
+           "negative_stages": [k for k, v in stages.items() if v < 0],
+           "trace_files": traces}
+    print(json.dumps({"phase": "probe", **res}))
+    if not traces or not all(size > 0 for _, size in traces):
+        raise AssertionError("probe: profiler_trace wrote no trace")
 
 
 def main() -> int:
@@ -3653,6 +3905,9 @@ def main() -> int:
         host_aug_launches = phase_host_augment(every)
         dp_launches = phase_dp(every)
         torch.cuda.empty_cache()
+        remat_launches = phase_remat(every)
+        mp_launches = phase_mp(every)
+        torch.cuda.empty_cache()
         qat_launches, qat_routes, qat_img_s = phase_qat(every, trained)
         del trained
     torch.cuda.empty_cache()
@@ -3663,6 +3918,8 @@ def main() -> int:
     v3_launches, v3_launches8, v3_img_s, v3_img_s8, v3_gemm = phase_yolov3(
         every)
     torch.cuda.empty_cache()
+    phase_probe()
+    torch.cuda.empty_cache()
     phase_int8_map("YOLOv3")
     v3_train_launches, v3_train_img_s = phase_train(every, "YOLOv3", V3_HW)
     print(f"launches by path: YOLOv2 serving {launches}, YOLOv2 training "
@@ -3672,14 +3929,16 @@ def main() -> int:
           f"YOLOv3 training {v3_train_launches}, evaluate_batched with the "
           f"loader and PIL {loader_launches}, train epochs with host and "
           f"device augmentation {host_aug_launches}, data-parallel steps "
-          f"{dp_launches}")
+          f"{dp_launches}, steps with and without remat {remat_launches}, "
+          f"model-axis steps (both ranks) {mp_launches}")
     print(f"launches of the served artifacts (phase serve): {served}")
     # Each kernel's launches are those of the main paths that run it (the
     # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths, every served
     # artifact and phase loader's evaluator runs; the superstem: YOLOv2
     # bf16 serving, direct, from artifacts and in phase loader; the warp:
     # the three training paths, the QAT fine-tune, phase host_augment's
-    # device epoch and phase dp's steps;
+    # device epoch, phase dp's steps, phase remat's timed steps of both
+    # variants and phase mp's timed steps on both ranks;
     # the GEMM: the YOLOv2 int8 engine, the QAT fine-tune, YOLOv3
     # int8_dynamic and their artifacts); the GEMM's times are sums over the
     # 20 GEMMs of one YOLOv2 int8 call (the 32 of a YOLOv3 call are printed
@@ -3706,7 +3965,9 @@ def main() -> int:
                        + v1_train_launches["warp_affine"]
                        + v3_train_launches["warp_affine"]
                        + host_aug_launches["warp_affine"]
-                       + dp_launches["warp_affine"]), **warp),
+                       + dp_launches["warp_affine"]
+                       + remat_launches["warp_affine"]
+                       + mp_launches["warp_affine"]), **warp),
         dict(name="int8_matmul", route="cuda",
              source="odc_tpu_torch/csrc/int8_matmul.cu",
              replaces="scripts/probe_int8_mxu.py:76",

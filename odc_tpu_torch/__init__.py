@@ -25,7 +25,13 @@ fine-tuning of YOLOv2 against the int8 engine (``ops/qat.py``,
 checkpoints (``train/checkpoint.py``), and serving: the exported engine
 artifact, the micro-batching server, the HTTP door and the export command
 line (``serve/``, ``python -m odc_tpu_torch.serve``), with the kernels as
-PyTorch operators (``ops/cuda/ops.py``).
+PyTorch operators (``ops/cuda/ops.py``); the C++ JPEG loader, host
+augmentation and data parallelism (``native/``, ``data/``,
+``parallel/``); the mesh's model axis (``parallel/mesh.py::shard_model``,
+``--model-parallel``), remat on YOLOv2 and Darknet-19, YOLOv3's prefix
+probes (``stop_after``), the reference-layout torch checkpoint loaders
+(``models/convert_torch.py``) and ``utils.Throughput`` /
+``utils.profiler_trace``.
 
 Entry points (model constructors, the training command line) default to
 ``device="cuda"`` and raise when no card is present; the CPU runs only when

@@ -4,8 +4,9 @@ Same keys as the JAX package — ``MODEL_CONFIG`` / ``TRAIN_CONFIG`` with
 ``learning_rate_list``, ``num_epoch_list`` and the ``lambda_*`` loss
 weights — so a run configured for one package configures the other.
 ``MeshConfig`` keeps the JAX package's (data, model) axes: ``data`` is the
-number of data-parallel processes (``parallel/mesh.py``), ``model`` must
-stay 1 (every model fits one card).
+number of data-parallel ranks and ``model`` the number of ranks that share
+each wide kernel's output channels (``parallel/mesh.py``); ``DEVICE`` is
+the default mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,11 +18,15 @@ from typing import Dict, List, Tuple
 @dataclasses.dataclass
 class MeshConfig:
     """How training spreads over processes: ``data`` data-parallel ranks
-    (-1: the launcher's world size) and ``model`` tensor-parallel shards
-    (only 1: the JAX package's model axis has no counterpart)."""
+    (-1: the launcher's world size over ``model``) and ``model``
+    tensor-parallel shards of every kernel with at least 512 outputs;
+    ``data * model`` processes in all, one per rank."""
 
     data: int = -1
     model: int = 1
+
+
+DEVICE = MeshConfig()
 
 
 @dataclasses.dataclass

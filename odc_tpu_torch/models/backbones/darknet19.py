@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from odc_tpu_torch.models.layers import (
     ConvBnLeaky, extent_mask, imagenet_normalize, max_pool_2x2,
+    rematerialize,
 )
 
 # (features, kernel) per conv within each stage; pools sit between stages.
@@ -30,13 +31,21 @@ _STAGES = (
 
 
 class Darknet19Backbone(nn.Module):
+    """``remat``: in training with gradients on, each stage runs under
+    :func:`~odc_tpu_torch.models.layers.rematerialize` (its activations
+    are recomputed in the backward pass: memory traded for compute, as the
+    JAX package's ``nn.remat`` stages); the parameters and their names are
+    the same either way."""
+
     def __init__(
         self,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         stages = []
         cin = 3
         for stage in _STAGES:
@@ -78,6 +87,7 @@ class Darknet19Backbone(nn.Module):
         eh = ew = None
         if valid_hw is not None:
             eh, ew = valid_hw[:, 0], valid_hw[:, 1]
+        remat = self.remat and self.training and torch.is_grad_enabled()
         c5 = None
         for stage_idx, stage in enumerate(self.stages):
             if stage_idx < start:
@@ -88,7 +98,7 @@ class Darknet19Backbone(nn.Module):
                 if eh is not None:
                     eh, ew = eh // 2, ew // 2
             if eh is None:
-                h = stage(h)
+                h = rematerialize(stage, h) if remat else stage(h)
             else:
                 # One mask a stage; 1x1 convs read no neighbourhood.
                 mask = extent_mask(h.shape, eh, ew).to(h.dtype)

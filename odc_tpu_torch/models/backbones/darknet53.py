@@ -22,6 +22,10 @@ import torch.nn as nn
 
 from odc_tpu_torch.models.layers import ConvBnLeaky, imagenet_normalize
 
+# The prefix probes ``forward(stop_after=...)`` takes: the stem, then each
+# downsample + residual block.
+PROBES = ("stem", "b1", "b2", "b3", "b4", "b5")
+
 # (downsample features, residual repeats) per stage.
 _BLOCKS = (
     (64, 1),
@@ -71,12 +75,36 @@ class Darknet53Backbone(nn.Module):
         self.stages = nn.ModuleList(stages)
 
     def forward(
-        self, x: torch.Tensor
+        self, x: torch.Tensor, stop_after: Optional[str] = None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """[N, H, W, 3] RGB (0-255) -> (c3, c4, c5), NHWC."""
+        """[N, H, W, 3] RGB (0-255) -> (c3, c4, c5), NHWC.
+
+        ``stop_after`` (a prefix-timing probe, inference only): ``"stem"``
+        or ``"b1"``..``"b5"`` returns the map after that block, as the JAX
+        package's ``Darknet53Backbone(stop_after=...)``; the differences of
+        adjacent prefixes' times are the blocks' costs."""
+        check_probe(self, stop_after, PROBES)
         h = self.stem(imagenet_normalize(x, self.dtype))
+        if stop_after == "stem":
+            return h
         taps = []
-        for stage in self.stages:
+        for i, stage in enumerate(self.stages):
             h = stage(h)
             taps.append(h)
+            if stop_after == f"b{i + 1}":
+                return h
         return taps[2], taps[3], taps[4]
+
+
+def check_probe(model: nn.Module, stop_after: Optional[str],
+                probes: Tuple[str, ...]) -> None:
+    """Raise unless ``stop_after`` is None or one of ``probes`` of an
+    eval-mode ``model``."""
+    if stop_after is None:
+        return
+    if stop_after not in probes:
+        raise ValueError(f"stop_after must be one of {probes}, got "
+                         f"{stop_after!r}")
+    if model.training:
+        raise ValueError("stop_after is an inference-only probe (call "
+                         ".eval() first)")

@@ -10,8 +10,9 @@ float64 input).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -39,10 +40,15 @@ class TorchBatchNorm(nn.Module):
 
     Data parallelism (``synced``, set by ``parallel.DataParallel.attach``):
     the training-mode statistics are those of the GLOBAL batch, reduced
-    over ``sync_group`` by :func:`global_var_mean`."""
+    over ``sync_group`` by :func:`global_var_mean`.
+
+    ``keep_running_stats`` (set by :func:`rematerialize` while it
+    recomputes a forward): the batch statistics normalize as in training,
+    but the running statistics stay as the first forward left them."""
 
     synced = False
     sync_group = None
+    keep_running_stats = False
 
     def __init__(self, features: int, eps: float = 1e-5, decay: float = 0.9):
         super().__init__()
@@ -55,30 +61,32 @@ class TorchBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training and self.synced:
-            var, mean, n = global_var_mean(xf, self.sync_group)
-            with torch.no_grad():
-                self.running_mean.mul_(self.decay).add_(
-                    mean, alpha=1.0 - self.decay
-                )
-                self.running_var.mul_(self.decay).add_(
-                    var * (n / (n - 1).clamp(min=1)) * (1.0 - self.decay)
-                )
-        elif self.training:
-            axes = tuple(range(x.dim() - 1))
-            var, mean = torch.var_mean(xf, dim=axes, correction=0)
-            n = x.numel() // x.shape[-1]
-            with torch.no_grad():
-                self.running_mean.mul_(self.decay).add_(
-                    mean, alpha=1.0 - self.decay
-                )
-                self.running_var.mul_(self.decay).add_(
-                    var, alpha=(1.0 - self.decay) * (n / max(n - 1, 1))
-                )
+        if self.training:
+            if self.synced:
+                var, mean, n = global_var_mean(xf, self.sync_group)
+            else:
+                axes = tuple(range(x.dim() - 1))
+                var, mean = torch.var_mean(xf, dim=axes, correction=0)
+                n = x.numel() // x.shape[-1]
+            if not self.keep_running_stats:
+                self._update_running(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n) -> None:
+        """Move the running statistics towards the batch mean and the
+        unbiased batch variance (``n``: the count, a tensor when it is the
+        global batch's)."""
+        self.running_mean.mul_(self.decay).add_(mean, alpha=1.0 - self.decay)
+        if torch.is_tensor(n):
+            self.running_var.mul_(self.decay).add_(
+                var * (n / (n - 1).clamp(min=1)) * (1.0 - self.decay))
+        else:
+            self.running_var.mul_(self.decay).add_(
+                var, alpha=(1.0 - self.decay) * (n / max(n - 1, 1)))
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -123,6 +131,63 @@ def global_var_mean(xf: torch.Tensor, group=None):
     return var, mean, n
 
 
+def rematerialize(fn: nn.Module, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    activations inside ``fn`` are dropped after the forward and recomputed
+    in the backward pass, compute traded for memory (the JAX package's
+    ``nn.remat``).
+
+    The recomputation must not move BatchNorm's running statistics a second
+    time (flax takes them from the forward's returned state alone): it runs
+    with ``keep_running_stats`` set on every ``TorchBatchNorm`` of ``fn``,
+    which normalize with the same batch statistics as the first forward
+    (same input, same sums), so the gradients are unchanged.  Under data
+    parallelism the recomputation repeats :func:`global_var_mean`'s
+    all-reduces (and a model-sharded layer's gather): every rank runs the
+    same backward graph, in order on one device thread, so the ranks
+    recompute the same stages in the same order and the collectives pair
+    up."""
+    from torch.utils.checkpoint import checkpoint
+
+    bns = [m for m in fn.modules() if isinstance(m, TorchBatchNorm)]
+
+    @contextlib.contextmanager
+    def recomputing():
+        for m in bns:
+            m.keep_running_stats = True
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.keep_running_stats = False
+
+    return checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+
+
+def apply_layer(layer: nn.Module, x: torch.Tensor,
+                op: Callable, dtype: torch.dtype) -> torch.Tensor:
+    """``op(x, weight, bias)`` with ``layer``'s weight and bias cast to
+    ``dtype``; ``op``'s output carries the layer's channels last.
+
+    A layer whose output channels are sharded over the mesh's model axis
+    (``layer.model_shard``, set by ``parallel/mesh.py::shard_model``) holds
+    only its rank's slice of the weight: ``x`` enters through the shard's
+    identity (whose backward sums the input gradient over the model group),
+    ``op`` runs on the slice without bias, the slices are gathered along
+    the last axis (whose backward keeps the rank's slice of the gradient),
+    then the full bias, replicated on every rank, is added: its gradient is
+    the same on every rank of the model group."""
+    w = layer.weight.to(dtype)
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    shard = getattr(layer, "model_shard", None)
+    if shard is None:
+        return op(x, w, b)
+    y = shard.gather(op(shard.enter(x), w, None))
+    return y if b is None else y + b
+
+
 def _conv_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:
     """PyTorch's default Conv2d init (kaiming-uniform, a=sqrt(5)), drawn
     from ``generator``."""
@@ -159,7 +224,11 @@ class ConvBnLeaky(nn.Module):
     channel, the int32 sums from ``ops/quantize.py::conv_i8`` (the
     hand-written GEMM on a CUDA tensor), ``acc * (sx * sw) + bias`` in
     float32, then this block's own BN (running statistics), leaky and the
-    cast to ``dtype``.  The same parameters serve both precisions."""
+    cast to ``dtype``.  The same parameters serve both precisions.
+
+    On a mesh with a model axis the conv of a block with at least 512
+    outputs keeps only its rank's output channels (:func:`apply_layer`);
+    BN and leaky run on the gathered, replicated map."""
 
     def __init__(
         self,
@@ -190,6 +259,9 @@ class ConvBnLeaky(nn.Module):
             in_features, features, kernel, stride=stride,
             padding=kernel // 2 if symmetric else 0, bias=True,
         )
+        # The forward goes through apply_layer: the conv may be sharded
+        # over the mesh's model axis (parallel/mesh.py::shard_model).
+        self.conv.model_shardable = True
         if generator is not None:
             _conv_init_(self.conv, generator)
         self.bn = TorchBatchNorm(features)
@@ -216,21 +288,24 @@ class ConvBnLeaky(nn.Module):
             if self.pad_input:
                 (t, b), (l, r) = self.pads(*h.shape[1:3])
                 h = F.pad(h, (0, 0, l, r, t, b))
-            y = F.conv2d(
-                h.permute(0, 3, 1, 2),
-                self.conv.weight.to(dt),
-                self.conv.bias.to(dt),
-                stride=self.stride,
-                padding=self.conv.padding,
-            ).permute(0, 2, 3, 1)
+            y = apply_layer(self.conv, h, self._conv_nhwc, dt)
         y = self.bn(y)
         return F.leaky_relu(y, self.negative_slope).to(dt)
+
+    def _conv_nhwc(self, h, w, b):
+        return F.conv2d(h.permute(0, 3, 1, 2), w, b, stride=self.stride,
+                        padding=self.conv.padding).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
         from odc_tpu_torch.ops.quantize import (
             conv_i8, hwio, quantize_dynamic, quantize_weights_per_channel,
         )
+
+        if getattr(self.conv, "model_shard", None) is not None:
+            raise ValueError("int8_dynamic runs on unsharded models only "
+                             "(this conv's weight is sharded over the "
+                             "model axis)")
 
         xq, sx = quantize_dynamic(x)
         wq, sw = quantize_weights_per_channel(hwio(self.conv.weight))

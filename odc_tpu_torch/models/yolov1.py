@@ -5,7 +5,9 @@ Port of ``odc_tpu/models/yolov1.py``: at 224x224 the backbone gives
 [N, 7, 7, 1024], flattened NHWC row-major to 50176 features, then
 Dense(50176 -> 4096), ReLU, Dropout(0.5) and Dense(4096 -> 7 * 7 * 30)
 (S = 7, B = 2, C = 20).  The Dense layers keep float32 parameters and
-compute in ``dtype``; the head comes out in float32.
+compute in ``dtype``; the head comes out in float32.  On a mesh's model
+axis both Dense layers (4096 and 1470 outputs) keep only their rank's
+output rows (``models/layers.py::apply_layer``).
 
 Dropout draws its mask from a ``torch.Generator`` passed to ``forward``,
 never from PyTorch's global generator, so a training run's randomness is
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 
 from odc_tpu_torch import resolve_device
 from odc_tpu_torch.models.backbones.googlenet import GoogLeNetBackbone
-from odc_tpu_torch.models.layers import _conv_init_
+from odc_tpu_torch.models.layers import _conv_init_, apply_layer
 from odc_tpu_torch.ops.decode import (
     Detections, decode_v1, decode_v1_preactivated,
 )
@@ -103,6 +105,8 @@ class YOLOv1(nn.Module):
             * self.out_dim)
         for fc in (self.fc1, self.fc2):
             _conv_init_(fc, gen)  # fan-in = weight[0].numel(), as for a conv
+            # Through apply_layer: shardable over the mesh's model axis.
+            fc.model_shardable = True
         self.to(dev)
 
     def forward(
@@ -115,10 +119,10 @@ class YOLOv1(nn.Module):
         n = x.shape[0]
         dt = self.dtype
         h = self.backbone(x).reshape(n, -1)  # NHWC row-major, as flax
-        h = F.relu(F.linear(h, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
+        h = F.relu(apply_layer(self.fc1, h, F.linear, dt))
         if self.training and self.dropout_rate > 0:
             h = dropout(h, self.dropout_rate, generator)
-        y = F.linear(h, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+        y = apply_layer(self.fc2, h, F.linear, dt)
         y = y.reshape(
             n, self.num_grid_cell_in_height, self.num_grid_cell_in_width,
             self.out_dim,

@@ -71,7 +71,12 @@ class YOLOv2(nn.Module):
     unfused stem).  Parameters are float32, drawn from a ``torch.Generator``
     seeded with ``seed`` (PyTorch's default Conv2d init, BN at identity),
     built on the CPU and moved to ``device``; convolutions run in ``dtype``.
-    ``device`` defaults to ``"cuda"`` and raises if no card is present."""
+    ``device`` defaults to ``"cuda"`` and raises if no card is present.
+
+    ``remat``: recompute the Darknet-19 stages' activations in the backward
+    pass (training only; see ``Darknet19Backbone``), as the JAX package's
+    ``YOLOv2(remat=True)``: less memory for a longer step, the same
+    parameters, outputs and gradients."""
 
     mode = "v2"  # target assignment, loss and detect contract
     # The ``ModelConfig`` fields the constructor takes (``train.py``'s).
@@ -86,6 +91,7 @@ class YOLOv2(nn.Module):
         image_size: Tuple[int, int] = (416, 416),
         device="cuda",
         seed: int = 0,
+        remat: bool = False,
     ):
         super().__init__()
         if neck not in ("quadrant", "space_to_depth"):
@@ -97,7 +103,8 @@ class YOLOv2(nn.Module):
         self.dtype = dtype
         self.image_size = tuple(image_size)
         gen = torch.Generator().manual_seed(seed)
-        self.backbone = Darknet19Backbone(dtype=dtype, generator=gen)
+        self.backbone = Darknet19Backbone(dtype=dtype, generator=gen,
+                                          remat=remat)
         self.neck = ConvBnLeaky(3072, 1024, 3, dtype=dtype, generator=gen)
         self.head = nn.Conv2d(1024, self.num_anchor_box * (5 + num_cls), 1)
         _conv_init_(self.head, gen)

@@ -29,11 +29,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from odc_tpu_torch import resolve_device
+from odc_tpu_torch.models.backbones import darknet53
 from odc_tpu_torch.models.backbones.darknet53 import Darknet53Backbone
 from odc_tpu_torch.models.layers import (
     ConvBnLeaky, TorchBatchNorm, _conv_init_,
 )
 from odc_tpu_torch.ops.decode import YOLOV3_ANCHORS, Detections, decode_v3
+
+
+# The prefix probes ``forward(stop_after=...)`` takes, in program order:
+# the backbone's, then the FPN's.
+PROBES = darknet53.PROBES + ("p5", "y32", "p4", "y16", "p3")
 
 
 def upsample2(x: torch.Tensor) -> torch.Tensor:
@@ -183,15 +189,39 @@ class YOLOv3(nn.Module):
             return five(getattr(self, "merge" + name)(t, tap))
         return five(torch.cat([upsample2(t), tap], dim=-1))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, stop_after: Optional[str] = None):
         """[N, H, W, 3] RGB (0-255) -> (y32, y16, y8), each
-        [N, H / s, W / s, 3, 5 + C] float32, coarsest first."""
+        [N, H / s, W / s, 3, 5 + C] float32, coarsest first.
+
+        ``stop_after`` (a prefix-timing probe, inference only; one of
+        :data:`PROBES`), as the JAX package's ``YOLOv3(stop_after=...)``:
+        ``"stem"``, ``"b1"``..``"b5"`` return the backbone's map there;
+        ``"p5"`` the first five-conv block's output, ``"y32"`` the first
+        head; past the first head the result is CUMULATIVE, earlier heads
+        included: ``"p4"`` gives ``(y32, p4)``, ``"y16"`` ``(y32, y16)``,
+        ``"p3"`` ``(y32, y16, p3)``.  Each prefix then does all the work
+        of the one before it (XLA would otherwise drop the heads no output
+        reads), so adjacent differences of their times are the stages'
+        costs in both packages."""
+        darknet53.check_probe(self, stop_after, PROBES)
+        if stop_after in darknet53.PROBES:
+            return self.backbone(x, stop_after=stop_after)
         c3, c4, c5 = self.backbone(x)
         p5 = self.five32(c5)
+        if stop_after == "p5":
+            return p5
         y32 = self._head(p5, self.head32, self.out32)
+        if stop_after == "y32":
+            return y32
         p4 = self._merge("16", p5, c4)
+        if stop_after == "p4":
+            return y32, p4
         y16 = self._head(p4, self.head16, self.out16)
+        if stop_after == "y16":
+            return y32, y16
         p3 = self._merge("8", p4, c3)
+        if stop_after == "p3":
+            return y32, y16, p3
         y8 = self._head(p3, self.head8, self.out8)
         return y32, y16, y8
 

@@ -34,14 +34,21 @@ reference-order augmentation on the host (``data/host_augment.py``), on the
 pipeline's prefetch thread.  ``--augment device`` runs the fused in-step
 augmentation on the card instead, the fast choice there.
 
-Data parallelism: one process per card, launched by ``torchrun`` (the
-group comes from its environment, ``nccl`` on cards, ``gloo`` with
-``--device cpu``); ``--data-parallel`` defaults to the world size and must
-equal it.  Each rank reads its slice of every global ``--batch-size``
-batch; only rank 0 writes checkpoints and metrics (the other ranks' folders
-end in `` rank<r>``).
+Data and model parallelism: one process per rank, launched by
+``torchrun`` (the group comes from its environment, ``nccl`` on cards,
+``gloo`` with ``--device cpu``), ``--data-parallel`` x ``--model-parallel``
+ranks in all (``--data-parallel`` defaults to the world size over
+``--model-parallel``).  Rank ``r`` is data index ``r // model`` and model
+index ``r % model``.  Each data index reads its slice of every global
+``--batch-size`` batch; the ranks of one model group share the output
+channels of every kernel with at least 512 outputs.  Only global rank 0
+writes checkpoints (gathered, in the one-card format; ``--resume`` shards
+a full one) and metrics; the other ranks' folders end in `` rank<r>``.
+``--qat`` refuses ``--model-parallel`` above 1.
 
     torchrun --nproc-per-node 4 -m odc_tpu_torch.train --model YOLOv2
+    torchrun --nproc-per-node 4 -m odc_tpu_torch.train --model YOLOv2 \\
+        --data-parallel 2 --model-parallel 2
 """
 
 from __future__ import annotations
@@ -109,7 +116,9 @@ def parse_args(argv=None):
                    help="data-parallel processes (-1: the launcher's world "
                    "size, which any other value must equal)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="only 1: every model trains on one card")
+                   help="ranks sharing the output channels of every kernel "
+                   "with at least 512 outputs (data x model processes in "
+                   "all; --qat takes only 1)")
     args = p.parse_args(argv)
 
     aug_mode = "none" if args.no_augment else args.augment
@@ -128,10 +137,15 @@ def main(argv=None) -> None:
     import torch
 
     from odc_tpu_torch.config import MeshConfig
-    from odc_tpu_torch.parallel import check_mesh, maybe_initialize_distributed
+    from odc_tpu_torch.parallel import (
+        check_mesh, make_mesh, maybe_initialize_distributed,
+    )
+    from odc_tpu_torch.train.qat import check_qat_mesh
 
-    # Under torchrun: join the group (a no-op in one process); each rank's
-    # pipelines then read only its slice of every global batch.
+    if args.qat:
+        check_qat_mesh(args.model_parallel)
+    # Under torchrun: join the group (a no-op in one process); each data
+    # index's pipelines then read only its slice of every global batch.
     dp = maybe_initialize_distributed(device=args.device)
     try:
         try:
@@ -141,6 +155,8 @@ def main(argv=None) -> None:
             print(f"python -m odc_tpu_torch.train: error: {e}",
                   file=sys.stderr)
             raise SystemExit(2)
+        if dp is not None:
+            dp = make_mesh(dp, args.model_parallel)
         _train(args, dp)
     finally:
         if dp is not None:
@@ -161,12 +177,14 @@ def _train(args, dp) -> None:
     from odc_tpu_torch.parallel import rank_zero_first
     from odc_tpu_torch.train import Trainer, checkpoint
 
+    # The pipelines read the data index's rows; folders are by global rank.
     pidx, pcnt = (0, 1) if dp is None else (dp.rank, dp.world_size)
+    grank = 0 if dp is None else dp.global_rank
     ckpt_path = os.path.join(
         args.ckpt_root,
         args.model,
         datetime.datetime.now().strftime("%Y-%m-%d %H-%M-%S")
-        + (f" rank{pidx}" if pidx else ""),
+        + (f" rank{grank}" if grank else ""),
     )
     os.makedirs(ckpt_path, exist_ok=True)
 

@@ -36,8 +36,10 @@ def _cpu(tree):
 
 
 def save(path: str, state) -> None:
-    """Write ``state.state_dict()`` (a ``TrainState``) to ``path``."""
-    torch.save(_cpu(state.state_dict()), path)
+    """Write ``state.state_dict()`` (a ``TrainState``), or a state dict of
+    that layout, to ``path``."""
+    sd = state if isinstance(state, dict) else state.state_dict()
+    torch.save(_cpu(sd), path)
 
 
 def _is_msgpack_map(tag: int) -> bool:
@@ -55,7 +57,10 @@ def restore(path: str, template):
     with open(path, "rb") as f:
         head = f.read(2)
     if head == b"PK":
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+        # Memory-mapped: each tensor is read as it is copied into the
+        # template (every rank of a mesh reads the whole file).
+        sd = torch.load(path, map_location="cpu", weights_only=True,
+                        mmap=True)
     elif head and _is_msgpack_map(head[0]):
         from odc_tpu_torch.models.convert_jax import train_state_from_jax
 

@@ -89,6 +89,17 @@ def make_engine_eval_step(model, lambdas: Lambdas, scales, stem: str = "s2d",
     return eval_step
 
 
+def check_qat_mesh(model_parallel: Optional[int]) -> None:
+    """QAT runs on a mesh with a data axis only: ``model_parallel`` above 1
+    raises ``ValueError``."""
+    if model_parallel is not None and model_parallel > 1:
+        raise ValueError(
+            f"QAT does not run under model parallelism ({model_parallel}): "
+            "the fake-quant twin (ops/qat.py::yolov2_qat_forward) reads the "
+            "weights itself and needs its own sharding, which is queued; "
+            "fine-tune on the data axis alone (--model-parallel 1)")
+
+
 def finetune_qat(
     model,
     state: TrainState,
@@ -115,11 +126,13 @@ def finetune_qat(
     (rows of kind ``qat_epoch`` and ``qat_val_epoch``) under
     ``ckpt_path``.  The augmentation draws from a ``torch.Generator`` on
     the model's device seeded with ``seed``.  ``mesh``: a
-    ``parallel.DataParallel`` whose rank and world size the pipelines carry.
+    ``parallel.DataParallel`` whose rank and world size the pipelines carry
+    (a data axis only: :func:`check_qat_mesh`).
     Returns ``(final_state, history)``."""
     from odc_tpu_torch.data.prefetch import device_prefetch
     from odc_tpu_torch.ops.qat import make_qat_train_step
 
+    check_qat_mesh(None if mesh is None else mesh.model_size)
     lambdas = lambdas or Lambdas()
     device = next(state.model.parameters()).device
     qat_step = make_qat_train_step(
@@ -130,7 +143,7 @@ def finetune_qat(
     )
     eval_step = make_engine_eval_step(model, lambdas, scales, stem=stem,
                                       dp=mesh)
-    writer = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.is_writer
     if mesh is not None:
         broadcast_state(state, mesh)
 

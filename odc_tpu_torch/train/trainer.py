@@ -30,11 +30,14 @@ buffers and the momentum buffers, and returns the same object.
 Validation runs batched at the pipeline's static size.
 
 Data parallelism (``Trainer(mesh=DataParallel)``, ``parallel/mesh.py``):
-each rank trains on its slice of every global batch; ``fit`` broadcasts
-rank 0's state, the step divides the loss by the global batch's counts,
-sums the gradients over the ranks before the update and reports the global
-loss, BatchNorm computes global-batch statistics, the validation loss and
-the mAP hook are reduced over the ranks, and only rank 0 writes files.
+each data index trains on its slice of every global batch; ``fit``
+broadcasts data index 0's state, the step divides the loss by the global
+batch's counts, sums the gradients over the data axis before the update
+and reports the global loss, BatchNorm computes global-batch statistics,
+the validation loss and the mAP hook are reduced over the data axis, and
+only global rank 0 writes files.  A mesh with a model axis also shards the
+wide kernels' output channels over it (``parallel.shard_model``, in
+``Trainer.__init__``); checkpoints are written gathered.
 """
 
 from __future__ import annotations
@@ -57,7 +60,9 @@ from odc_tpu_torch.losses.yolov3_loss import (
 )
 from odc_tpu_torch.ops.assign import YoloTargets, assign
 from odc_tpu_torch.ops.augment import augment_batch
-from odc_tpu_torch.parallel.mesh import all_reduce_grads, broadcast_state
+from odc_tpu_torch.parallel.mesh import (
+    all_reduce_grads, broadcast_state, model_shards, shard_model,
+)
 from odc_tpu_torch.train import checkpoint as ckpt_lib
 from odc_tpu_torch.train.schedule import StagedSchedule
 from odc_tpu_torch.utils.metrics import JsonlLogger
@@ -66,7 +71,13 @@ from odc_tpu_torch.utils.metrics import JsonlLogger
 class TrainState:
     """The full train state: ``model`` (parameters and BN buffers),
     ``momentum`` (one buffer per parameter, by parameter name) and ``step``.
-    ``TrainState(model)`` is a fresh state: zero momentum, step 0."""
+    ``TrainState(model)`` is a fresh state: zero momentum, step 0.
+
+    On a mesh's model axis (``parallel.shard_model``) the model and the
+    momentum hold the rank's slices of the sharded weights, while
+    :meth:`state_dict` gathers them (every rank of the model group must
+    call it) and :meth:`load_state_dict` takes full tensors and keeps the
+    rank's slices: a state dict has the one-card layout either way."""
 
     def __init__(self, model: torch.nn.Module, momentum=None, step: int = 0):
         self.model = model
@@ -77,19 +88,32 @@ class TrainState:
         self.step = step
 
     def state_dict(self) -> dict:
+        shards = model_shards(self.model)
+
+        def full(tree):
+            return {k: shards[k].gather_full(v) if k in shards else v
+                    for k, v in tree.items()}
+
         return {
-            "model": self.model.state_dict(),
-            "momentum": dict(self.momentum),
+            "model": full(self.model.state_dict()),
+            "momentum": full(self.momentum),
             "step": int(self.step),
         }
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"], strict=True)
+        shards = model_shards(self.model)
+
+        def local(tree):
+            return {k: shards[k].local(v) if k in shards else v
+                    for k, v in tree.items()}
+
+        self.model.load_state_dict(local(sd["model"]), strict=True)
         if sorted(sd["momentum"]) != sorted(self.momentum):
             raise KeyError("momentum names differ from the model's parameters")
+        momentum = local(sd["momentum"])
         with torch.no_grad():
             for name, buf in self.momentum.items():
-                buf.copy_(sd["momentum"][name])
+                buf.copy_(momentum[name])
         self.step = int(sd["step"])
 
 
@@ -287,9 +311,12 @@ class Trainer:
         self.model = model
         self.device = next(model.parameters()).device
         # ``mesh``: a ``parallel.DataParallel`` (the pipelines must carry
-        # its rank and world size), or None for one process.
+        # its data rank and size), or None for one process.  On a model
+        # axis the model is sharded here, before any state is built.
         self.dp = mesh
-        self.is_writer = mesh is None or mesh.rank == 0
+        self.is_writer = mesh is None or mesh.is_writer
+        if mesh is not None:
+            shard_model(model, mesh)
         self.train_pipeline = train_pipeline
         self.val_pipeline = val_pipeline
         self.config = config
@@ -446,8 +473,10 @@ class Trainer:
             self.train_pipeline.set_image_size((size, size))
 
     def _save(self, name: str, state: TrainState) -> None:
+        # Every rank gathers (the model axis's slices); the writer writes.
+        sd = state.state_dict()
         if self.is_writer:
-            ckpt_lib.save(os.path.join(self.ckpt_path, name), state)
+            ckpt_lib.save(os.path.join(self.ckpt_path, name), sd)
 
     def fit(self, state: Optional[TrainState] = None) -> Tuple[TrainState, dict]:
         if state is None:

@@ -1,3 +1,3 @@
-from odc_tpu_torch.utils.metrics import JsonlLogger
+from odc_tpu_torch.utils.metrics import JsonlLogger, Throughput, profiler_trace
 
-__all__ = ["JsonlLogger"]
+__all__ = ["JsonlLogger", "Throughput", "profiler_trace"]

@@ -159,6 +159,33 @@ def test_global_batchnorm_at_world_size_one(one_rank_group):
                                rtol=1e-4, atol=1e-5)
 
 
+def test_remat_in_a_one_rank_group(one_rank_group):
+    """``YOLOv2(remat=True)`` with BN reducing over the group: the
+    recomputation repeats the statistics' all-reduces but moves the
+    running statistics once; buffers and gradients after one forward and
+    backward equal the run without remat, bit for bit."""
+    import copy
+
+    from torch_port_helpers import fresh_yolov2
+
+    images = torch_dp_worker.make_batch("v2", slice(0, 2)).image
+    runs = []
+    plain = fresh_yolov2()
+    for remat in (False, True):
+        model = copy.deepcopy(plain).train()
+        model.backbone.remat = remat
+        one_rank_group.attach(model)
+        model(images).square().mean().backward()
+        runs.append(model)
+    (p0, p1) = runs
+    bufs = dict(p1.named_buffers())
+    for name, b in p0.named_buffers():
+        assert torch.equal(bufs[name], b), name
+    grads = dict(p1.named_parameters())
+    for name, p in p0.named_parameters():
+        assert torch.equal(grads[name].grad, p.grad), name
+
+
 def test_qat_step_in_a_one_rank_group(one_rank_group):
     """The QAT step's data-parallel wiring (global-batch draws, global
     counts, the gradient all-reduce, summed metrics) at world size 1: the

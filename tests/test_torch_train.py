@@ -619,11 +619,12 @@ def test_trainer_map_hook(voc, tmp_path, monkeypatch):
      (["--image-size", "100"], "multiple of 32")],
 )
 def test_cli_names_the_later_slice(argv, message, capsys):
-    """Usage errors exit 2 before any training: a data-parallel size other
-    than the launched world size (one process here) and a model axis,
-    which has no counterpart on one card.  (``--augment host`` and
-    ``--data-parallel`` are ported now: ``test_cli_defaults`` and
-    ``tests/test_torch_parallel.py``.)"""
+    """Usage errors exit 2 before any training: a data x model mesh other
+    than the launched world size (one process here: a data-parallel size
+    of 2, a model axis of 2).  (``--augment host``, ``--data-parallel``
+    and ``--model-parallel`` are ported now: ``test_cli_defaults``,
+    ``tests/test_torch_parallel.py`` and
+    ``tests/test_torch_model_axis.py``.)"""
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert exc.value.code == 2

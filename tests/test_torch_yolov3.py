@@ -38,6 +38,7 @@ from odc_tpu_torch.models.convert_jax import (
     jax_from_state_dict, load_jax_yolov3, state_dict_from_jax,
 )
 from odc_tpu_torch.models.layers import ConvBnLeaky, same_padding
+from odc_tpu_torch.models import yolov3
 from odc_tpu_torch.models.yolov3 import YOLOv3
 from odc_tpu_torch.ops import decode as tdecode
 from odc_tpu_torch.ops import detect as tdetect
@@ -189,6 +190,60 @@ def test_heads_match_jax_fused(shared):
         assert g.shape == r.shape == (CALIB_IMAGES, s, s, 3, 25)
         assert g.dtype == np.float32 and r.std() > 0.1
         np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_probes():
+    """JAX ``YOLOv3.apply(..., stop_after=p)`` of the first two images for
+    every probe ``p``, in one jitted program (9 s here, against about 15
+    for eleven programs and 13 eagerly)."""
+    images, jmodel, variables, _ = v3_setup()
+
+    def probes(v, x):
+        return {p: jmodel.apply(v, x, stop_after=p) for p in yolov3.PROBES}
+
+    out = jax.jit(probes)(jax.tree.map(jnp.asarray, variables),
+                          jnp.asarray(images[:2]))
+    return jax.tree.map(np.asarray, out)
+
+
+@pytest.mark.parametrize("probe", yolov3.PROBES)
+def test_stop_after_matches_jax(shared, probe):
+    """Each prefix probe of the port against the JAX package's, from the
+    same weights: the same structure (a map, the first head, or the
+    cumulative tuples past it) within rtol 1e-3 and atol 2e-3."""
+    with torch.no_grad():
+        got = shared["model"](torch.tensor(shared["images"][:2]),
+                              stop_after=probe)
+    want = _jax_probes()[probe]
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want)
+    else:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and w.std() > 0.05
+        np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL)
+
+
+def test_stop_after_contract(shared):
+    """The tuple shapes of the cumulative probes; the full forward's heads
+    are the probes' heads; an unknown name and training mode raise."""
+    model, x = shared["model"], torch.tensor(shared["images"][:2])
+    with torch.no_grad():
+        full = model(x)
+        y32, y16, p3 = model(x, stop_after="p3")
+        assert torch.equal(model(x, stop_after="y32"), full[0])
+        assert torch.equal(y32, full[0]) and torch.equal(y16, full[1])
+        assert tuple(p3.shape) == (2, 8, 8, 128)
+        assert tuple(model(x, stop_after="b5").shape) == (2, 2, 2, 1024)
+        with pytest.raises(ValueError, match="stop_after must be one of"):
+            model(x, stop_after="b6")
+    model.train()
+    try:
+        with pytest.raises(ValueError, match="inference-only"):
+            model(x, stop_after="stem")
+    finally:
+        model.eval()
 
 
 def test_heads_match_jax_concat():

@@ -1,8 +1,10 @@
-"""One rank of the two-process gloo group of ``tests/test_torch_parallel.py``.
+"""One rank of the gloo groups of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_model_axis.py``.
 
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
-        python tests/torch_dp_worker.py OUT_DIR DATA_DIR
+        python tests/torch_dp_worker.py OUT_DIR DATA_DIR [model-axis]
 
+With ``model-axis``: :func:`main_model_axis`.  Otherwise:
 Joins the group through ``maybe_initialize_distributed`` (the ``torchrun``
 environment path) and writes ``OUT_DIR/rank<r>.pt``: YOLOv2 at 64x64 over
 two data-parallel steps (global batch 4, momentum 0.9, device augmentation)
@@ -19,9 +21,12 @@ step-2 loss by 4e-4 relative between 1 and 4 CPU threads), which would
 hide what the comparison is for; in float64 the two-process and
 one-process runs agree to about 1e-14 on the losses."""
 
+import contextlib
 import hashlib
+import io
 import os
 import sys
+import zlib
 
 import numpy as np
 import torch
@@ -52,7 +57,11 @@ def make_batch(mode: str, rows: slice):
 
 
 def _rows(dp):
-    return slice(None) if dp is None else slice(2 * dp.rank, 2 * dp.rank + 2)
+    """The data index's rows of the global batch of 4."""
+    if dp is None:
+        return slice(None)
+    n = len(BOX_COUNTS) // dp.world_size
+    return slice(n * dp.rank, n * (dp.rank + 1))
 
 
 def _step(model, mode, dp, state=None):
@@ -71,8 +80,8 @@ def _step(model, mode, dp, state=None):
 
 def digests(tensors: dict) -> dict:
     """A SHA-256 of each tensor's bytes: equal digests, equal bits."""
-    return {k: hashlib.sha256(v.detach().contiguous().numpy().tobytes())
-            .hexdigest() for k, v in tensors.items()}
+    return {k: hashlib.sha256(v.detach().contiguous().numpy()).hexdigest()
+            for k, v in tensors.items()}
 
 
 def yolov2_steps(dp=None, seed: int = 3) -> dict:
@@ -113,6 +122,170 @@ def yolov1_step(dp) -> dict:
     return digests(state.state_dict()["model"])
 
 
+def _model(name: str, seed: int, dtype=torch.float64):
+    from odc_tpu_torch.models import YOLOv1, YOLOv2, YOLOv3
+
+    kw = dict(dtype=dtype, image_size=HW, device="cpu", seed=seed)
+    if name == "YOLOv1":
+        model = YOLOv1(num_grid_cell_in_height=2, num_grid_cell_in_width=2,
+                       **kw)
+    else:
+        model = {"YOLOv2": YOLOv2, "YOLOv3": YOLOv3}[name](**kw)
+    return model.to(dtype)
+
+
+def _train_step(model, dp):
+    """One train step of ``model`` (sharded already on a mesh): global
+    batch 4 of :func:`make_batch` (the data index's rows), momentum 0.9,
+    device augmentation, the generator seeded 0.  Returns the state and
+    the metrics as floats."""
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.train import TrainState, make_train_step
+
+    # shard_model gave every rank global rank 0's weights: no
+    # broadcast_state (the CLI's Trainer.fit runs it).
+    state = TrainState(model)
+    step = make_train_step(model.mode, Lambdas(),
+                           getattr(model, "anchors", None), momentum=0.9,
+                           augment_cfg=AugmentConfig(), dp=dp)
+    batch = make_batch("v1" if model.mode == "v1" else "v2", _rows(dp))
+    state, metrics = step(state, batch, LR, torch.Generator().manual_seed(0))
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def model_axis_step(name: str, dp=None, seed: int = 3) -> dict:
+    """One float64 train step of ``name`` (YOLOv1 with dropout 0.5, YOLOv2
+    or YOLOv3) at 64x64, on the mesh ``dp`` (from ``make_mesh``; the model
+    sharded over its model axis first) or in one process (None).  Returns
+    the metrics, and the update of every parameter (as float32) from the
+    one process or from global rank 0, whose weights ``shard_model`` sends
+    to every rank.  On a mesh every rank adds the names of its sharded
+    weights and the digests of the gathered state after the step; global
+    rank 0 adds the names ``model_axis_layers`` gives and writes the
+    gathered state with ``checkpoint.save`` (to memory: float64 states of
+    up to 1.1 GB, a small disk), loads it into an unsharded copy of the
+    initial model and records the tensors that differ."""
+    import copy
+
+    from odc_tpu_torch.parallel import (
+        model_axis_layers, model_shards, shard_model,
+    )
+    from odc_tpu_torch.train import TrainState, checkpoint
+
+    model = _model(name, seed)
+    writer = dp is None or dp.is_writer
+    result = {}
+    if writer:
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if dp is not None:
+        if writer:
+            one_card = copy.deepcopy(model)
+            result["axis_layers"] = sorted(f"{n}.weight" for n, _ in
+                                           model_axis_layers(model))
+        shard_model(model, dp)
+    state, result["metrics"] = _train_step(model, dp)
+    after = state.state_dict()  # gathered on a mesh
+    if writer:
+        result["update"] = {n: (after["model"][n] - b).float()
+                            for n, b in before.items()}
+    if dp is None:
+        return result
+    result["sharded"] = sorted(model_shards(model))
+    result["digests"] = state_digests(after)
+    if writer:
+        buf = io.BytesIO()
+        checkpoint.save(buf, after)
+        buf.seek(0)
+        one = TrainState(one_card)
+        one.load_state_dict(torch.load(buf, weights_only=True))
+        loaded = one.state_dict()
+        result["checkpoint_step"] = loaded["step"]
+        result["checkpoint_differs"] = [
+            f"{part}.{k}" for part in ("model", "momentum")
+            for k, v in after[part].items()
+            if not torch.equal(loaded[part][k], v)
+        ] + sorted(set(loaded["model"]) ^ set(after["model"]))
+    return result
+
+
+def state_digests(sd: dict) -> dict:
+    """A CRC-32 of each tensor of a ``TrainState.state_dict()`` (a fifth of
+    SHA-256's time on float64 states of 1 GB): two states with equal
+    digests are equal bit for bit unless a difference happens to leave
+    every one of the 32-bit checks unchanged."""
+    return {k: zlib.crc32(v.detach().contiguous().numpy())
+            for part in ("model", "momentum")
+            for k, v in ((f"{part}.{n}", t) for n, t in sd[part].items())}
+
+
+def main_model_axis(out_dir: str, data_dir: str) -> None:
+    """``WORLD_SIZE`` 2: the (1, 2) mesh, one step of each model; 4: the
+    (2, 2) mesh, one YOLOv2 step, then the training CLI (YOLOv1, float32)
+    with ``--data-parallel 2 --model-parallel 2`` resuming from a one-card
+    checkpoint global rank 0 writes (step 1); after it global rank 0
+    deletes the checkpoints and adds ``"cli"``: the files of every rank's
+    folder and whether the final checkpoint restores into a one-card
+    YOLOv1, finite, at step 2.  The results (:func:`model_axis_step`'s by
+    model; rank 0's hold float32 updates of up to 0.6 GB, kept off the
+    small disk) go to standard output as one ``torch.save`` payload;
+    everything printed goes to standard error."""
+    with contextlib.redirect_stdout(sys.stderr):
+        result = _model_axis_run(out_dir, data_dir)
+    buf = io.BytesIO()
+    torch.save(result, buf)
+    sys.stdout.buffer.write(buf.getvalue())
+    sys.stdout.flush()
+
+
+def _model_axis_run(out_dir: str, data_dir: str) -> dict:
+    import torch.distributed as dist
+
+    from odc_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+    from odc_tpu_torch.train import TrainState, checkpoint
+    from odc_tpu_torch.train.__main__ import main as cli_main
+
+    dp = make_mesh(maybe_initialize_distributed(device="cpu"), 2)
+    world = dp.world_size * dp.model_size
+    torch.set_num_threads(4 // world)  # the two launches run side by side
+    names = ("YOLOv2", "YOLOv1", "YOLOv3") if world == 2 else ("YOLOv2",)
+    # Each rank starts from other weights: shard_model must replace them
+    # with global rank 0's.
+    result = {name: model_axis_step(name, dp, seed=3 + dp.global_rank)
+              for name in names}
+    if world == 2:
+        dist.destroy_process_group()
+        return result
+    cli_ckpt = os.path.join(out_dir, "YOLOv1-resume.ckpt")
+    if dp.is_writer:
+        checkpoint.save(cli_ckpt, TrainState(
+            _model("YOLOv1", 3, torch.float32), step=1))
+    dist.barrier()
+    runs_dir = os.path.join(out_dir, "ckpts", "YOLOv1")
+    cli_main(["--device", "cpu", "--model", "YOLOv1", "--dtype", "float32",
+              "--augment", "device", "--epochs", "1", "--batch-size", "4",
+              "--image-size", "64", "--data-parallel", "2",
+              "--model-parallel", "2", "--resume", cli_ckpt,
+              "--dataset-dir", data_dir,
+              "--ckpt-root", os.path.dirname(runs_dir)])
+    if dp.is_writer:  # the CLI tore the group down: the others are done
+        os.unlink(cli_ckpt)
+        folders = {r: sorted(os.listdir(os.path.join(runs_dir, r)))
+                   for r in os.listdir(runs_dir)}
+        (writer,) = [r for r in folders if " rank" not in r]
+        state = checkpoint.restore(
+            os.path.join(runs_dir, writer, "final_model.ckpt"),
+            TrainState(_model("YOLOv1", 0, torch.float32)))
+        result["cli"] = {
+            "folders": folders, "final_step": state.step,
+            "final_finite": all(bool(t.isfinite().all()) for t in
+                                state.model.state_dict().values())}
+        for name in folders[writer]:
+            if name.endswith(".ckpt"):
+                os.unlink(os.path.join(runs_dir, writer, name))
+    return result
+
+
 def main(out_dir: str, data_dir: str) -> None:
     torch.set_num_threads(2)
     from odc_tpu_torch.parallel import maybe_initialize_distributed
@@ -135,4 +308,7 @@ def main(out_dir: str, data_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    if sys.argv[3:] == ["model-axis"]:
+        main_model_axis(*sys.argv[1:3])
+    else:
+        main(*sys.argv[1:3])
