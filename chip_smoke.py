@@ -103,6 +103,19 @@ just before and read just after:
   update within relative l2 1e-2 of the one-process step's, bf16 ms/step
   (gloo stages every collective through the host: not a measure of model
   parallelism's speed), 1 warp launch a step on each rank;
+* QAT on the mesh's model axis — phase qat_mp: ``--qat --model-parallel
+  2`` on YOLOv2-416 at batch 32 with device augmentation, two spawned
+  processes sharing the card over gloo: the sharded calibration within
+  rtol 1e-5 of one card's, the sharded engine's codes at every
+  ``stop_after`` point and its head bitwise one card's, one exact f32
+  step's loss bitwise one card's and its update within relative l2 1e-2
+  of one card convolving as the mesh splits,
+  the step's 20 GEMMs (11 on channel slices) bitwise equal to plain on
+  the wgmma route and to the one-card GEMM's columns, ``finetune_qat`` on
+  the mesh for one epoch (20 GEMMs a step and a validation batch and 1
+  warp a step on each rank), the gathered checkpoint's one-card head
+  bitwise the sharded one; ms/step, peak memory and the sliced GEMMs'
+  times;
 * YOLOv3's prefix probes — phase probe: each ``stop_after`` prefix of
   YOLOv3-416 bf16 at batch 256 timed with CUDA events, per-stage ms as
   differences of adjacent prefixes, one call traced by
@@ -3591,19 +3604,25 @@ MP_STEPS = 5
 PROBE_ITERS = 3
 
 
-def _one_batch(rank=0, world=1):
-    """The data-parallel phases' batch: 32 rectangles-on-noise images at
-    416x416 through the pipeline (the data index's rows), on the card."""
-    from odc_tpu_torch.data.pipeline import DetectionPipeline
+def _first(pipe):
+    """The first batch of ``pipe``, on the card (its prefetch thread
+    stopped)."""
     from odc_tpu_torch.data.prefetch import device_prefetch
 
-    data = _RectanglesOnNoise(TRAIN_BATCH, HW, SEED + 9)
-    pipe = DetectionPipeline(data, HW, TRAIN_BATCH, 64, seed=SEED,
-                             process_index=rank, process_count=world)
     batches = device_prefetch(pipe, torch.device(DEVICE))
     batch = next(batches)
     batches.close()
     return batch
+
+
+def _one_batch(rank=0, world=1):
+    """The data-parallel phases' batch: 32 rectangles-on-noise images at
+    416x416 through the pipeline (the data index's rows), on the card."""
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+
+    data = _RectanglesOnNoise(TRAIN_BATCH, HW, SEED + 9)
+    return _first(DetectionPipeline(data, HW, TRAIN_BATCH, 64, seed=SEED,
+                                    process_index=rank, process_count=world))
 
 
 def _v2_step(dtype, remat=False, dp=None, shard=False):
@@ -3819,6 +3838,432 @@ def phase_mp(counters):
     return launches
 
 
+QAT_MP_STEPS = 3
+# The engine's stop_after points: backbone convs 0-19, the neck input (21),
+# the neck output (22); None runs to the head.
+ENGINE_STOPS = (*range(20), 21, 22, None)
+
+
+def _crc(t: torch.Tensor) -> int:
+    import zlib
+
+    return zlib.crc32(np.ascontiguousarray(t.detach().cpu().numpy()))
+
+
+@contextlib.contextmanager
+def _mesh_split_twin(model_size: int):
+    """Inside the block, an unsharded model's QAT twin convolves each
+    conv the mesh shards (at least 512 outputs) as the model axis does:
+    each rank's slice of output channels on its own, the results
+    concatenated.  cuDNN picks its f32 algorithm by the output width, so a
+    slice sums in another order than the whole conv; fake quantization
+    turns that into flipped codes, which a calibrated random network
+    amplifies layer by layer.  With the same splits one card sums as the
+    mesh does, and the sharded step can be held to it."""
+    from odc_tpu_torch.ops import qat as tq
+    from odc_tpu_torch.ops.int8_engine import _conv_f32
+    from odc_tpu_torch.parallel.mesh import _MIN_SHARD_CHANNELS
+
+    real = tq._twin_conv
+
+    def split(shard, h, kernel):
+        if shard is not None or kernel.shape[-1] < _MIN_SHARD_CHANNELS:
+            return real(shard, h, kernel)
+        return torch.cat([_conv_f32(h, tq.fake_quant_weight(k)) for k in
+                          kernel.tensor_split(model_size, dim=-1)], -1)
+
+    tq._twin_conv = split
+    try:
+        yield
+    finally:
+        tq._twin_conv = real
+
+
+def _qat_mp_worker(rank, port, out_dir):
+    """One rank of phase qat_mp (a spawned process): a (1, 2) mesh over
+    gloo with both ranks on ``cuda:0``.  Global rank 0 also holds a
+    one-card copy of the model, taken before sharding, for the gates; the
+    other rank waits in the next collective meanwhile."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from odc_tpu_torch.config import TRAIN_CONFIG
+    from odc_tpu_torch.data.pipeline import DetectionPipeline
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops import int8_engine as te
+    from odc_tpu_torch.ops.augment import AugmentConfig
+    from odc_tpu_torch.ops.cuda.matmul_kernel import (
+        matmul, matmul_plain, route,
+    )
+    from odc_tpu_torch.ops.cuda.warp_kernel import warp_affine
+    from odc_tpu_torch.ops.qat import make_qat_train_step, yolov2_qat_forward
+    from odc_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed, model_shards, shard_model,
+    )
+    from odc_tpu_torch.parallel.mesh import shard_of
+    from odc_tpu_torch.train import (
+        calibrate_from_pipeline, checkpoint, finetune_qat,
+    )
+    from odc_tpu_torch.train.qat import make_engine_eval_step
+    from odc_tpu_torch.train.trainer import TrainState
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        t0 = time.perf_counter()
+        dp = make_mesh(maybe_initialize_distributed(device=DEVICE), 2)
+        writer = dp.is_writer
+        res["mesh"] = [dp.world_size, dp.model_size]
+        cfg = dataclasses.replace(TRAIN_CONFIG["YOLOv2"]["VOC2012"],
+                                  seed=SEED)
+        lambdas = Lambdas(cfg.lambda_xy, cfg.lambda_wh, cfg.lambda_conf,
+                          cfg.lambda_noobj, cfg.lambda_cls)
+        train_set = _RectanglesOnNoise(TRAIN_IMAGES, HW, SEED + 7)
+        rows = dict(process_index=dp.rank, process_count=dp.world_size)
+        train_pipe = DetectionPipeline(
+            train_set, HW, TRAIN_BATCH, cfg.max_boxes, mode="v2", seed=SEED,
+            **rows)
+        val_pipe = DetectionPipeline(
+            _RectanglesOnNoise(VAL_IMAGES, HW, SEED + 8), HW, TRAIN_BATCH,
+            cfg.max_boxes, mode="v2", shuffle=False, drop_remainder=False,
+            **rows)
+        calib_pipe = DetectionPipeline(
+            train_set, HW, TRAIN_BATCH, cfg.max_boxes, mode="v2",
+            shuffle=False)
+        model = YOLOv2(dtype=torch.bfloat16, device=DEVICE, seed=SEED).eval()
+        _calibrate_bn(model, _first(calib_pipe).image,
+                      torch.Generator().manual_seed(SEED + 3))
+        one = copy.deepcopy(model) if writer else None
+        shard_model(model, dp)  # global rank 0's weights on both ranks
+        res["sharded_layers"] = len(model_shards(model))
+
+        # 1. The ranges, calibrated sharded (TF32 off inside the call).
+        scales = calibrate_from_pipeline(model, calib_pipe)
+        res["scales_crc"] = _crc(scales)
+        if writer:
+            ref = calibrate_from_pipeline(one, calib_pipe)
+            res["calib_max_rel"] = float(((scales - ref).abs()
+                                          / ref.abs()).max())
+
+        # 2. One engine validation batch: its loss, and the codes at every
+        # stop_after point and the head.
+        val = _first(val_pipe)
+        state = TrainState(model)
+        res["val_loss"] = float(make_engine_eval_step(
+            model, lambdas, scales, dp=dp)(state, val))
+        res["engine_crcs"], res["engine_differs"] = [], []
+        for stop in ENGINE_STOPS:
+            got = te.yolov2_int8_forward(model, val.image, scales,
+                                         stem="s2d", stop_after=stop)
+            res["engine_crcs"].append(_crc(got))
+            if writer and not torch.equal(got, te.yolov2_int8_forward(
+                    one, val.image, scales, stem="s2d", stop_after=stop)):
+                res["engine_differs"].append(stop)
+        if writer:
+            res["val_loss_one_card"] = float(make_engine_eval_step(
+                one, lambdas, scales)(TrainState(one), val))
+        # The f32 twin's head (no gradient) against one card's, with whole
+        # convolutions and with the mesh's splits: relative l2.
+        with torch.no_grad():
+            twin = yolov2_qat_forward(model, val.image, scales)
+            if writer:
+                for key, split in (("twin_head_rel_l2_one_card", False),
+                                   ("twin_head_rel_l2_split", True)):
+                    with (_mesh_split_twin(dp.model_size) if split
+                          else contextlib.nullcontext()):
+                        ref = yolov2_qat_forward(one, val.image, scales)
+                    res[key] = float((twin - ref).norm() / ref.norm())
+        del twin
+
+        # 3. One exact f32 step with device augmentation, its GEMMs
+        # recorded; the one-card step from the same weights on rank 0.
+        aug = AugmentConfig()
+        batch = _first(train_pipe)
+        before = {n: t.clone() for n, t in state.state_dict()["model"].items()}
+
+        def exact_step(net, state, mesh):
+            gemms = []
+            step = make_qat_train_step(
+                net, lambdas, scales, momentum=0.9,
+                weight_decay=cfg.weight_decay, augment_cfg=aug, dp=mesh)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+            with _swap_matmul(lambda real, a, b: gemms.append((a, b))
+                              or real(a, b)):
+                _, metrics = step(state, batch, QAT_LR, gen)
+            return step, float(metrics["loss"]), gemms
+
+        step, res["exact_loss"], gemms = exact_step(model, state, dp)
+        after = state.state_dict()["model"]  # gathered
+
+        def distance():
+            """Relative l2 of the sharded update from the one-card one,
+            over all parameters and at the worst leaf."""
+            num = den = 0.0
+            worst = (0.0, "")
+            for n, p in one.named_parameters():
+                want = p.detach() - before[n]
+                d = float((after[n] - before[n] - want).norm())
+                num += d * d
+                den += float(want.norm()) ** 2
+                worst = max(worst, (d / max(float(want.norm()), 1e-30), n))
+            return (num / den) ** 0.5, list(worst)
+
+        if writer:
+            _, res["exact_loss_one_card"], one_gemms = exact_step(
+                one, TrainState(one), None)
+            (res["update_rel_l2_one_card"],
+             res["update_worst_leaf_one_card"]) = distance()
+            one.load_state_dict(before)
+            with _mesh_split_twin(dp.model_size):
+                _, res["exact_loss_split"], _ = exact_step(
+                    one, TrainState(one), None)
+            res["update_rel_l2"], res["update_worst_leaf"] = distance()
+        del before, after
+
+        # 5. Every GEMM of the step against the plain version; rank 0's
+        # sliced ones against the columns of the one-card GEMM, and their
+        # times beside the full width's (rank 1 waits at the barrier).
+        res["gemms"] = []
+        for i, (a, b) in enumerate(gemms):
+            m, k = a.shape
+            n = b.shape[1]
+            got = matmul(a, b)
+            g = {"m": m, "k": k, "n": n,
+                 "route": route(m, n, k, a.dtype, a, b),
+                 "plain_equal": torch.equal(got, matmul_plain(a, b))}
+            if writer and n != one_gemms[i][1].shape[1]:
+                a1, b1 = one_gemms[i]
+                g["full_n"] = b1.shape[1]
+                g["full_columns_equal"] = torch.equal(
+                    got, matmul(a1, b1)[:, :n])
+            res["gemms"].append(g)
+        if writer:
+            res["sliced_gemm_ms"] = []
+            for (m, k, n) in sorted({(g["m"], g["k"], g["n"])
+                                     for g in res["gemms"] if "full_n" in g}):
+                i = next(j for j, g in enumerate(res["gemms"])
+                         if (g["m"], g["k"], g["n"]) == (m, k, n))
+                (a, b), (_, b1) = gemms[i], one_gemms[i]
+                ms = graph_ms(lambda: matmul(a, b), 5)
+                full_ms = graph_ms(lambda: matmul(a, b1), 5)
+                nbytes, ops = _mm_bound(m, k, n, 1, 4)
+                bms, by = bound_ms(nbytes, ops, INT8_OPS)
+                res["sliced_gemm_ms"].append(dict(
+                    m=m, k=k, n=n, ms=ms, tops=ops / ms / 1e9,
+                    full_n=b1.shape[1], full_ms=full_ms, bound_ms=bms,
+                    bound_by=by))
+            del one_gemms
+        del gemms
+        dist.barrier()
+
+        # 4. The main path: finetune_qat on the mesh, one epoch, counted.
+        ckpt_dir = os.path.join(out_dir, "ckpt")
+        matmul.launches = warp_affine.launches = 0
+        matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
+        t = time.perf_counter()
+        state, hist = finetune_qat(
+            model, state, train_pipe, val_pipe, scales, ckpt_dir, epochs=1,
+            lr=QAT_LR, momentum=0.9, weight_decay=cfg.weight_decay,
+            lambdas=lambdas, augment_cfg=aug, seed=SEED, mesh=dp)
+        sync()
+        res["finetune"] = dict(
+            s=time.perf_counter() - t, steps=len(train_pipe),
+            val_batches=len(val_pipe), hist=hist,
+            launches={"int8_matmul": matmul.launches,
+                      "warp_affine": warp_affine.launches},
+            by_route=dict(matmul.launches_by_route))
+
+        res["replicated_crc"] = _crc(torch.cat(
+            [t.detach().reshape(-1).float() for t in
+             (*model.parameters(), *model.buffers())
+             if shard_of(t) is None]))
+
+        # 6. The gathered checkpoint in a one-card model: its engine head
+        # against the sharded one.
+        head = te.yolov2_int8_forward(model, val.image, scales, stem="s2d")
+        if writer:
+            res["files"] = sorted(os.listdir(ckpt_dir))
+            final = checkpoint.restore(
+                os.path.join(ckpt_dir, "final_qat_model.ckpt"),
+                TrainState(one))
+            res["restored_step"] = final.step
+            res["restored_head_equal"] = torch.equal(
+                head, te.yolov2_int8_forward(final.model, val.image, scales,
+                                             stem="s2d"))
+            del final, one
+        del head
+        torch.cuda.empty_cache()
+
+        # Timing: QAT_MP_STEPS steps after two warm-up steps, counted.
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+        for _ in range(2):
+            step(state, batch, QAT_LR, gen)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        matmul.launches = warp_affine.launches = 0
+        matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
+        times = []
+        for _ in range(QAT_MP_STEPS):
+            t = time.perf_counter()
+            step(state, batch, QAT_LR, gen)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        res["timed"] = dict(
+            ms=times, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches={"int8_matmul": matmul.launches,
+                      "warp_affine": warp_affine.launches},
+            by_route=dict(matmul.launches_by_route))
+        res["worker_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+
+
+def phase_qat_mp(counters):
+    """QAT under the mesh's model axis (``--qat --model-parallel 2``):
+    YOLOv2-416 at batch 32, f32 parameters from seed 0 with BN calibrated
+    and randomized as phase qat builds them, on a (data 1, model 2) mesh of
+    two processes sharing the card over gloo, 11 convs sharded (stages 5-7
+    and the neck).  Gates: the sharded calibration within rtol 1e-5 of the
+    one-card ``calibrate`` (TF32 off) and equal on both ranks; one engine
+    validation batch: the codes at every ``stop_after`` point and the head
+    bitwise the one-card engine's, the loss equal; one exact f32 step with
+    device augmentation: the loss bitwise the one-card step's and equal on
+    both ranks, the gathered update within relative l2 1e-2 of the update
+    of one card that convolves as the mesh splits (``_mesh_split_twin``;
+    the distance from one card's whole convolutions is printed: the twin's
+    f32 sums in another order flip fake-quant codes); the step's 20 GEMMs
+    (11 on channel slices, N 256 and 512) bitwise equal to plain, all on
+    the wgmma route, the sliced ones bitwise the one-card GEMM's columns;
+    ``finetune_qat`` on the mesh for one epoch (the main path, counted: 20
+    GEMMs a step and a validation batch, 1 warp a step, on each rank), the
+    replicated parameters and buffers bitwise equal on both ranks after
+    it; its gathered final checkpoint in a one-card model gives the
+    sharded engine's head bitwise.  Then ms/step
+    of three steps and peak memory on each rank (gloo stages every
+    collective through the host: not model parallelism's speed), and each
+    sliced GEMM shape's kernel time beside the full width's.  Returns the
+    kernels' launches of both ranks (fine-tune and timed steps) and the
+    GEMM's launches by route."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=_qat_mp_worker, args=(r, port, out_dir))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r in range(2):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {})
+    print(json.dumps({"phase": "qat_mp", "gpu": gpu_line(), "ranks": ranks,
+                      "note": "ms/step of two processes on one card over "
+                      "gloo (host-staged collectives): not a measure of "
+                      "model parallelism's speed"}))
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"qat_mp: worker exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    return _qat_mp_gates(ranks, counters)
+
+
+def _qat_mp_gates(ranks, counters):
+    """Phase qat_mp's gates on the two ranks' results; returns their
+    launches and the GEMM's launches by route."""
+    r0, r1 = ranks
+    if r0["sharded_layers"] != 11:
+        raise AssertionError(f"qat_mp: {r0['sharded_layers']} sharded convs")
+    if not r0["calib_max_rel"] <= 1e-5 or r0["scales_crc"] != r1["scales_crc"]:
+        raise AssertionError(f"qat_mp: calibration {r0['calib_max_rel']}")
+    if (r0["engine_differs"] or r0["engine_crcs"] != r1["engine_crcs"]
+            or r0["val_loss"] != r0["val_loss_one_card"]
+            or r1["val_loss"] != r0["val_loss"]):
+        raise AssertionError(f"qat_mp: the engine differs from one card at "
+                             f"{r0['engine_differs']}")
+    if not (r0["exact_loss"] == r0["exact_loss_one_card"]
+            == r0["exact_loss_split"] == r1["exact_loss"]):
+        raise AssertionError(f"qat_mp: exact loss {r0['exact_loss']}, one "
+                             f"card {r0['exact_loss_one_card']}, split "
+                             f"{r0['exact_loss_split']}, rank 1 "
+                             f"{r1['exact_loss']}")
+    if not r0["update_rel_l2"] <= 1e-2:
+        raise AssertionError(f"qat_mp: update rel l2 {r0['update_rel_l2']} "
+                             "from one card with the mesh's conv splits")
+    if r0["replicated_crc"] != r1["replicated_crc"]:
+        raise AssertionError("qat_mp: the ranks' replicated parameters "
+                             "differ after the fine-tune")
+    for r in ranks:
+        if len(r["gemms"]) != 20 or any(
+                g["route"] != "wgmma" or not g["plain_equal"]
+                for g in r["gemms"]):
+            raise AssertionError(f"qat_mp: rank {r['rank']} GEMMs "
+                                 f"{r['gemms']}")
+    sliced = [g for g in r0["gemms"] if "full_n" in g]
+    if (len(sliced) != 11 or {g["n"] for g in sliced} != {256, 512}
+            or any(g["full_n"] != 2 * g["n"] or not g["full_columns_equal"]
+                   for g in sliced)
+            or [g["n"] for g in r1["gemms"]] != [g["n"] for g in r0["gemms"]]):
+        raise AssertionError(f"qat_mp: sliced GEMMs {sliced}")
+    launches = {k: 0 for k in counters}
+    routes = {"wgmma": 0, "mma_sync": 0}
+    for r in ranks:
+        ft, timed = r["finetune"], r["timed"]
+        calls = ft["steps"] + ft["val_batches"]
+        _check_launches(f"qat_mp rank {r['rank']} fine-tune", ft["launches"],
+                        {"int8_matmul": 20 * calls,
+                         "warp_affine": ft["steps"]})
+        _check_launches(f"qat_mp rank {r['rank']} fine-tune routes",
+                        ft["by_route"], {"wgmma": 20 * calls, "mma_sync": 0})
+        _check_launches(f"qat_mp rank {r['rank']} timed steps",
+                        timed["launches"],
+                        {"int8_matmul": 20 * QAT_MP_STEPS,
+                         "warp_affine": QAT_MP_STEPS})
+        if not all(math.isfinite(x) for x in ft["hist"]["train_loss_mean_list"]
+                   + ft["hist"]["val_loss_list"]):
+            raise AssertionError(f"qat_mp: losses {ft['hist']}")
+        for part in (ft, timed):
+            _add(launches, part["launches"])
+            _add(routes, part["by_route"])
+    if r0["files"] != sorted(["best_qat_model.ckpt", "final_qat_model.ckpt",
+                              "int8_scales.npy", "metrics.jsonl"]):
+        raise AssertionError(f"qat_mp: artifacts {r0['files']}")
+    if not r0["restored_head_equal"]:
+        raise AssertionError("qat_mp: the gathered checkpoint's one-card "
+                             "head differs from the sharded engine's")
+    print(f"qat_mp ({gpu_line()}): calibration max rel {r0['calib_max_rel']:.3e}"
+          f"; engine codes and head bitwise at {len(ENGINE_STOPS)} points; "
+          f"exact loss bitwise ({r0['exact_loss']}); update rel l2 "
+          f"{r0['update_rel_l2']:.3e} from one card with the mesh's conv "
+          f"splits, {r0['update_rel_l2_one_card']:.3e} from one card's "
+          f"whole convs (the twin's head {r0['twin_head_rel_l2_split']:.3e} "
+          f"and {r0['twin_head_rel_l2_one_card']:.3e} from them: summation "
+          f"order, amplified); replicated state "
+          f"equal on both ranks; 20 GEMMs a rank bitwise on wgmma; ms/"
+          f"step rank 0 {statistics.median(r0['timed']['ms']):.1f}, rank 1 "
+          f"{statistics.median(r1['timed']['ms']):.1f}; peak "
+          f"{r0['timed']['peak_gb']:.2f} / {r1['timed']['peak_gb']:.2f} GB")
+    return launches, routes
+
+
 def phase_probe():
     """YOLOv3-416 bf16 at batch 256, eval mode, BN calibrated: each
     ``stop_after`` prefix (and the full forward) timed with CUDA events
@@ -3908,6 +4353,8 @@ def main() -> int:
         remat_launches = phase_remat(every)
         mp_launches = phase_mp(every)
         torch.cuda.empty_cache()
+        qat_mp_launches, qat_mp_routes = phase_qat_mp(every)
+        torch.cuda.empty_cache()
         qat_launches, qat_routes, qat_img_s = phase_qat(every, trained)
         del trained
     torch.cuda.empty_cache()
@@ -3930,7 +4377,8 @@ def main() -> int:
           f"loader and PIL {loader_launches}, train epochs with host and "
           f"device augmentation {host_aug_launches}, data-parallel steps "
           f"{dp_launches}, steps with and without remat {remat_launches}, "
-          f"model-axis steps (both ranks) {mp_launches}")
+          f"model-axis steps (both ranks) {mp_launches}, QAT on the model "
+          f"axis (both ranks) {qat_mp_launches}")
     print(f"launches of the served artifacts (phase serve): {served}")
     # Each kernel's launches are those of the main paths that run it (the
     # NMS: YOLOv2, YOLOv1 and both YOLOv3 serving paths, every served
@@ -3938,9 +4386,12 @@ def main() -> int:
     # bf16 serving, direct, from artifacts and in phase loader; the warp:
     # the three training paths, the QAT fine-tune, phase host_augment's
     # device epoch, phase dp's steps, phase remat's timed steps of both
-    # variants and phase mp's timed steps on both ranks;
-    # the GEMM: the YOLOv2 int8 engine, the QAT fine-tune, YOLOv3
-    # int8_dynamic and their artifacts); the GEMM's times are sums over the
+    # variants, phase mp's timed steps on both ranks and phase qat_mp's
+    # fine-tune and timed steps on both ranks;
+    # the GEMM: the YOLOv2 int8 engine, the QAT fine-tune, phase qat_mp's
+    # fine-tune and timed steps on both ranks (11 of each 20 on channel
+    # slices), YOLOv3 int8_dynamic and their artifacts); the GEMM's times
+    # are sums over the
     # 20 GEMMs of one YOLOv2 int8 call (the 32 of a YOLOv3 call are printed
     # above).
     kernels = [
@@ -3967,19 +4418,23 @@ def main() -> int:
                        + host_aug_launches["warp_affine"]
                        + dp_launches["warp_affine"]
                        + remat_launches["warp_affine"]
-                       + mp_launches["warp_affine"]), **warp),
+                       + mp_launches["warp_affine"]
+                       + qat_mp_launches["warp_affine"]), **warp),
         dict(name="int8_matmul", route="cuda",
              source="odc_tpu_torch/csrc/int8_matmul.cu",
              replaces="scripts/probe_int8_mxu.py:76",
              **{**mm, "launches_by_route": {
                  "wgmma": (mm["launches_by_route"]["wgmma"]
                            + qat_routes["wgmma"]
+                           + qat_mp_routes["wgmma"]
                            + v3_launches8["int8_matmul"]
                            + served["wgmma"]),
                  "mma_sync": (mm["launches_by_route"]["mma_sync"]
-                              + qat_routes["mma_sync"])}},
+                              + qat_routes["mma_sync"]
+                              + qat_mp_routes["mma_sync"])}},
              launches=(int8_launches["int8_matmul"]
                        + qat_launches["int8_matmul"]
+                       + qat_mp_launches["int8_matmul"]
                        + v3_launches8["int8_matmul"]
                        + served["int8_matmul"])),
     ]

@@ -34,6 +34,10 @@ and in the lifted s2d stem, the border correction applies at the bucket's
 bottom/right edge only to images that reach it, and the quadrant reorg
 splits each image at its own half extents.  With the plain stem the codes
 entering the neck equal each image's native-size run bit for bit.
+
+A model sharded over the mesh's model axis runs the engine and its
+calibration on each rank's output channels of the wide convs, gathering
+the int8 codes (:func:`yolov2_int8_forward`).
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ from odc_tpu_torch.models.yolov2 import quadrant_stack, quadrant_stack_dynamic
 from odc_tpu_torch.ops.quantize import (
     conv_i8, hwio, quantize_weights_per_channel,
 )
+from odc_tpu_torch.parallel.mesh import (
+    ModelShard, gather_channels, shard_of,
+)
 
 # Input activation scale is static: ImageNet-normalized pixels span
 # [-(0.485/0.229), (1-0.406)/0.225] within [-2.2, 2.7].
@@ -65,10 +72,14 @@ def scales_tensor(scales, device) -> torch.Tensor:
     return torch.tensor(scales, dtype=torch.float32, device=device)
 
 
-def _blocks(model) -> List[Tuple[Dict, Dict, Dict]]:
-    """(conv_params, bn_params, bn_stats) for every ConvBnLeaky of the
-    port's YOLOv2 in forward order, 20 backbone convs then the neck conv, in
-    the JAX package's names and layout (HWIO ``kernel``, f32)."""
+def _blocks(model) -> List[Tuple[Dict, Dict, Dict, Optional[ModelShard]]]:
+    """(conv_params, bn_params, bn_stats, shard) for every ConvBnLeaky of
+    the port's YOLOv2 in forward order, 20 backbone convs then the neck
+    conv, in the JAX package's names and layout (HWIO ``kernel``, f32).
+    ``shard``: the conv's output channels over the mesh's model axis
+    (``parallel/mesh.py::shard_model``), or None.  A sharded block's
+    ``kernel`` holds the rank's output channels only; its conv bias and BN
+    vectors are replicated, whole (:func:`_on_slice` cuts them)."""
     blocks = [blk for stage in model.backbone.stages for blk in stage]
     out = []
     for blk in blocks + [model.neck]:
@@ -76,8 +87,23 @@ def _blocks(model) -> List[Tuple[Dict, Dict, Dict]]:
             {"kernel": hwio(blk.conv.weight.float()), "bias": blk.conv.bias},
             {"scale": blk.bn.weight, "bias": blk.bn.bias},
             {"mean": blk.bn.running_mean, "var": blk.bn.running_var},
+            shard_of(blk.conv),
         ))
     return out
+
+
+def _on_slice(shard, conv_p, bn_p, bn_s):
+    """A block's parameters on the rank's output channels: the sharded
+    kernel is the slice already, the replicated conv bias and BN vectors
+    are cut to it.  Unsharded (``shard`` None): as they are."""
+    if shard is None:
+        return conv_p, bn_p, bn_s
+
+    def cut(d):
+        return {k: shard.local(v) for k, v in d.items()}
+
+    return ({"kernel": conv_p["kernel"], "bias": shard.local(conv_p["bias"])},
+            cut(bn_p), cut(bn_s))
 
 
 def _affine(conv_p, bn_p, bn_s, sw, sx, eps=1e-5):
@@ -312,8 +338,25 @@ def yolov2_int8_forward(
     ``stem`` plain or s2d and ``bf16_front=0`` only): the masked native-size
     forward of a batch padded top-left to a common bucket.  Cells
     ``[:h // 32, :w // 32]`` of each image's head equal its native-size
-    engine run; the cells beyond are junk the caller masks."""
+    engine run; the cells beyond are junk the caller masks.
+
+    On the mesh's model axis (a model after ``parallel.shard_model``;
+    every rank of the model group calls with the same images) a sharded
+    block runs on the rank's output channels: in engine mode the int8 GEMM
+    at N = the slice, the epilogue on the slice's conv bias and BN, leaky
+    and the requantization at ``scales[i]``, then an all-gather of the
+    int8 CODES along channels (the neck's f32 output is gathered as f32).
+    The GEMM is exact and all after it is elementwise per channel, so the
+    codes and the head are the unsharded engine's bit for bit.
+    Calibration gathers the f32 conv output before the epilogue and
+    :func:`_range_stat` (a range is over the whole tensor).  ``valid_hw``,
+    ``stem="s2d2"`` and ``bf16_front`` do not run sharded."""
     blocks = _blocks(model)
+    if any(blk[3] is not None for blk in blocks) and (
+            valid_hw is not None or stem == "s2d2" or bf16_front > 0):
+        raise ValueError(
+            "a model sharded over the mesh's model axis runs the engine "
+            "with stem 'plain' or 's2d', bf16_front=0 and no valid_hw")
     calibrating = scales is None
     stat = (
         (lambda t: t.abs().amax())
@@ -372,7 +415,7 @@ def yolov2_int8_forward(
     c5_idx = _LAST_OF_STAGE[4]
 
     pooled_to = 0  # stages whose entry pool a lifted conv already fused
-    for i, (conv_p, bn_p, bn_s) in enumerate(blocks[:20]):
+    for i, (conv_p, bn_p, bn_s, shard) in enumerate(blocks[:20]):
         si = _STAGE_OF[i]
         first_of_stage = i == 0 or _STAGE_OF[i - 1] != si
         if first_of_stage and 1 <= si <= 5 and si > pooled_to:
@@ -425,8 +468,8 @@ def yolov2_int8_forward(
             continue
 
         if calibrating:
-            h = _float_epilogue(_conv_f32(h, conv_p["kernel"]), conv_p, bn_p,
-                                bn_s)
+            y = gather_channels(shard, _conv_f32(h, conv_p["kernel"]))
+            h = _float_epilogue(y, conv_p, bn_p, bn_s)
             amaxes.append(_range_stat(h, stat))
         elif i < bf16_front:
             # bf16 conv + f32 epilogue; quantize the OUTPUT so the next
@@ -441,7 +484,7 @@ def yolov2_int8_forward(
             s_prev, z_prev = s_out, z_out
         else:
             wq, sw = quantize_weights_per_channel(conv_p["kernel"])
-            a, b = _affine(conv_p, bn_p, bn_s, sw, s_prev)
+            a, b = _affine(*_on_slice(shard, conv_p, bn_p, bn_s), sw, s_prev)
             if eh is not None and wq.shape[0] > 1:
                 # Masked path: out-of-extent cells at the zero-point code,
                 # so this conv's boundary windows read native SAME padding
@@ -459,7 +502,7 @@ def yolov2_int8_forward(
                     )
             y = F.leaky_relu(acc_f * a + b, 0.1)
             s_out, z_out = _act_qparams(scales[i])
-            h = _quant_act(y, s_out, z_out)
+            h = gather_channels(shard, _quant_act(y, s_out, z_out))
             s_prev, z_prev = s_out, z_out
         if i == c5_idx:
             c5 = h
@@ -496,19 +539,19 @@ def yolov2_int8_forward(
     if stop_after == 21:  # after the quadrant concat / requant
         return neck_in
 
-    conv_p, bn_p, bn_s = blocks[20]
+    conv_p, bn_p, bn_s, shard = blocks[20]
     if calibrating:
-        neck = _float_epilogue(_conv_f32(neck_in, conv_p["kernel"]), conv_p,
-                               bn_p, bn_s)
+        y = gather_channels(shard, _conv_f32(neck_in, conv_p["kernel"]))
+        neck = _float_epilogue(y, conv_p, bn_p, bn_s)
         amaxes.append(_range_stat(neck, stat))
     else:
         wq, sw = quantize_weights_per_channel(conv_p["kernel"])
-        a, b = _affine(conv_p, bn_p, bn_s, sw, s_cat)
+        a, b = _affine(*_on_slice(shard, conv_p, bn_p, bn_s), sw, s_cat)
         wsum = wq.float().sum(dim=(0, 1, 2))
         b = b - z_cat * wsum * a
         acc = conv_i8(neck_in, wq).float()
         acc = acc + _zp_border_correction(wq, z_cat, neck_in.shape[1:3], eh, ew)
-        neck = F.leaky_relu(acc * a + b, 0.1)
+        neck = gather_channels(shard, F.leaky_relu(acc * a + b, 0.1))
     if stop_after == 22:  # after the neck conv
         return neck
 
@@ -539,7 +582,11 @@ def calibrate(model, sample_images, percentile: Optional[float] = None):
 
     The pass runs f32 convolutions: on the card, set
     ``torch.backends.cudnn.allow_tf32 = False`` first, or cuDNN computes
-    them in TF32 and the ranges move by about 1e-3 relative."""
+    them in TF32 and the ranges move by about 1e-3 relative.
+
+    On the mesh's model axis every rank of the model group calls it on the
+    same images and gets the same ranges: each sharded layer's f32 output
+    is gathered before its range is taken."""
     _, amaxes = yolov2_int8_forward(
         model, sample_images, scales=None, calib_percentile=percentile
     )

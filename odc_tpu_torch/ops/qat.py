@@ -133,6 +133,24 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def _twin_conv(shard, h, kernel):
+    """The f32 conv of ``h`` with the fake-quantized ``kernel``, BEFORE the
+    epilogue.  A block sharded over the mesh's model axis runs as
+    ``models/layers.py::apply_layer``: ``h`` enters through the shard's
+    identity (backward: the input gradient summed over the model group),
+    the conv runs on the rank's kernel slice (its per-output-channel
+    ``amax`` is the whole kernel's), and the slices are gathered along
+    channels (backward: the rank's slice).  The replicated conv bias, BN,
+    leaky and activation fake quantization come after the gather, on every
+    rank alike, so their gradients are equal across the model group (cut to
+    a slice, each rank would move them by its own channels and the ranks
+    would drift apart).  The engine, which has no gradient, requantizes on
+    the slice and gathers codes instead."""
+    if shard is None:
+        return _conv_f32(h, fake_quant_weight(kernel))
+    return shard.gather(_conv_f32(shard.enter(h), fake_quant_weight(kernel)))
+
+
 def yolov2_qat_forward(
     model,
     images,
@@ -164,6 +182,11 @@ def yolov2_qat_forward(
             the twin.  Costs an engine forward.
         on_phase: measurement only; called with ``"twin"`` once the twin is
             enqueued and, in exact mode, ``"engine"`` after the engine.
+
+    On the mesh's model axis (a model after ``parallel.shard_model``) the
+    sharded blocks run on the rank's output channels (:func:`_twin_conv`)
+    and exact mode runs the sharded engine; every rank of the model group
+    calls with the same images and gets the same head.
     Returns:
         Raw head [N, Hg, Wg, A, 5 + C] f32 (the engine's contract).
     """
@@ -188,7 +211,7 @@ def yolov2_qat_forward(
 
         c5 = None
         c5_idx = _LAST_OF_STAGE[4]
-        for i, (conv_p, bn_p, bn_s) in enumerate(blocks[:20]):
+        for i, (conv_p, bn_p, bn_s, shard) in enumerate(blocks[:20]):
             si = _STAGE_OF[i]
             first_of_stage = i == 0 or _STAGE_OF[i - 1] != si
             if first_of_stage and 1 <= si <= 5:
@@ -200,7 +223,7 @@ def yolov2_qat_forward(
             if i == 0 and stem == "s2d":
                 y = _conv_f32(_bf16(h), _bf16(conv_p["kernel"]))
             else:
-                y = _conv_f32(h, fake_quant_weight(conv_p["kernel"]))
+                y = _twin_conv(shard, h, conv_p["kernel"])
             h = fake_quant_act(_float_epilogue(y, conv_p, bn_p, bn_s),
                                scales[i])
             if i == c5_idx:
@@ -212,10 +235,9 @@ def yolov2_qat_forward(
         # code-to-code requant in value space.
         neck_in = fake_quant_act(torch.cat([quadrant_stack(c5), h], -1),
                                  scales[21])
-        conv_p, bn_p, bn_s = blocks[20]
-        neck = _float_epilogue(
-            _conv_f32(neck_in, fake_quant_weight(conv_p["kernel"])),
-            conv_p, bn_p, bn_s)
+        conv_p, bn_p, bn_s, shard = blocks[20]
+        neck = _float_epilogue(_twin_conv(shard, neck_in, conv_p["kernel"]),
+                               conv_p, bn_p, bn_s)
 
         # The head stays bf16 in the engine: bf16 operands with f32 sums,
         # then the engine's bf16 OUTPUT rounding before the f32 bias add
@@ -269,8 +291,12 @@ def make_qat_train_step(
     "augment", "twin", "engine" (exact mode), "loss", "backward" and
     "update" as each part has been enqueued.  ``dp`` (a
     ``parallel.DataParallel``): global-batch augmentation draws, global loss
-    counts, gradients summed over the ranks and global metrics, as the
-    trainer's step (BN is frozen here, so it reduces nothing)."""
+    counts, gradients summed over the data axis and global metrics, as the
+    trainer's step (BN is frozen here, so it reduces nothing).  On a model
+    axis (``state.model`` sharded by ``parallel.shard_model``) the twin and
+    the engine run sharded; each rank's gradients are its slices of the
+    sharded kernels and the replicated parameters' whole gradients (model
+    rank 0's, ``parallel.all_reduce_grads``)."""
     neck = getattr(model, "neck_kind", None)
     if type(model).__name__ != "YOLOv2" or neck != "quadrant":
         raise ValueError(

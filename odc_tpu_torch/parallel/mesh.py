@@ -34,8 +34,13 @@ over the model group, the local conv or matmul runs on the weight slice,
 the slices are all-gathered along the channel axis (backward: the rank's
 slice of the gradient), and the replicated bias follows.  Splits need not
 be even (``tensor_split``; the gather pads to the largest slice), as GSPMD
-pads the 1470-wide YOLOv1 head over 4.  Checkpoints are written gathered
-(:class:`ModelShard`, ``TrainState.state_dict``), in the one-card format.
+pads the 1470-wide YOLOv1 head over 4.  The replicated parameters' updates
+stay equal across a model group because every rank takes model rank 0's
+gradients of them (:func:`all_reduce_grads`).  Checkpoints are written
+gathered (:class:`ModelShard`, ``TrainState.state_dict``), in the
+one-card format.  The int8 engine, its calibration and the QAT twin run
+sharded too (``ops/int8_engine.py``, ``ops/qat.py``), through
+:func:`shard_of` and :func:`gather_channels`.
 """
 
 from __future__ import annotations
@@ -271,6 +276,23 @@ class ModelShard:
         return _GatherModel.apply(y, self)
 
 
+def shard_of(layer) -> Optional[ModelShard]:
+    """The shard of a layer's output channels over the model axis (of a
+    layer or its sharded weight, as ``shard_model`` marks both), or None
+    where it is replicated."""
+    return getattr(layer, "model_shard", None)
+
+
+def gather_channels(shard: Optional[ModelShard],
+                    t: torch.Tensor) -> torch.Tensor:
+    """The model group's slices of ``t`` along its last (channel) axis,
+    concatenated (no gradient flows through an all-gather); ``t`` itself
+    when ``shard`` is None, with nothing added to a graph that
+    ``torch.export`` captures.  Any dtype the backend carries: the int8
+    engine gathers its int8 codes, never their float values."""
+    return t if shard is None else shard.gather_full(t, dim=-1)
+
+
 def model_axis_layers(model: torch.nn.Module) -> List[Tuple[str, Any]]:
     """(name, layer) of every conv or ``Linear`` of ``model`` whose weight
     has at least ``_MIN_SHARD_CHANNELS`` outputs: the layers the model axis
@@ -286,7 +308,7 @@ def model_shards(model: torch.nn.Module) -> Dict[str, ModelShard]:
     for a model with no model axis)."""
     return {f"{name}.weight": m.model_shard
             for name, m in model.named_modules()
-            if getattr(m, "model_shard", None) is not None}
+            if shard_of(m) is not None}
 
 
 @torch.no_grad()
@@ -295,9 +317,10 @@ def shard_model(model: torch.nn.Module, dp: DataParallel) -> None:
     parameters and buffers are sent to every rank, then each rank keeps
     only its slice of the output channels of every layer of
     :func:`model_axis_layers` (``layer.model_shard``, read by
-    ``models/layers.py::apply_layer``).  Build the ``TrainState`` after
-    this (its momentum mirrors the slices).  A model with no model axis
-    (``dp.model_size`` 1) is left as it is."""
+    ``models/layers.py::apply_layer``, and the same on the new weight
+    parameter, read by :func:`all_reduce_grads`).  Build the
+    ``TrainState`` after this (its momentum mirrors the slices).  A model
+    with no model axis (``dp.model_size`` 1) is left as it is."""
     if dp.model_size == 1:
         return
     if model_shards(model):
@@ -313,7 +336,7 @@ def shard_model(model: torch.nn.Module, dp: DataParallel) -> None:
         shard = ModelShard(dp.model_group, dp.model_rank, dp.model_size,
                            layer.weight.shape[0])
         layer.weight = torch.nn.Parameter(shard.local(layer.weight).clone())
-        layer.model_shard = shard
+        layer.model_shard = layer.weight.model_shard = shard
 
 
 @torch.no_grad()
@@ -327,23 +350,36 @@ def broadcast_state(state, dp: DataParallel) -> None:
         dist.broadcast(t, src=dp.model_rank, group=dp.group)
 
 
+def _in_one_bucket(tensors: List[torch.Tensor], collective) -> None:
+    """Run ``collective`` on the tensors concatenated flat, in place."""
+    bucket = torch.cat([t.reshape(-1) for t in tensors])
+    collective(bucket)
+    torch._foreach_copy_(
+        tensors, [b.view_as(t) for b, t in
+                  zip(bucket.split([t.numel() for t in tensors]), tensors)])
+
+
 @torch.no_grad()
 def all_reduce_grads(params: Iterable[torch.nn.Parameter],
                      dp: DataParallel) -> None:
     """Sum the parameters' ``.grad`` over the data axis in one flat bucket,
     in place (a missing gradient counts as zeros).  On a model axis each
-    rank sums its own slices; the replicated parameters' gradients are
-    equal across a model group already."""
+    rank sums its own slices, then every rank of a model group takes model
+    rank 0's gradients of the replicated parameters: each rank computes
+    them whole, and where the backward kernels are not deterministic (a
+    card's cuDNN weight gradients) they differ in the last bits, so the
+    replicas would drift apart step by step."""
     params = list(params)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    bucket = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(bucket, group=dp.group)
-    torch._foreach_copy_(
-        grads, [b.view_as(g) for b, g in
-                zip(bucket.split([g.numel() for g in grads]), grads)])
+    _in_one_bucket([p.grad for p in params],
+                   lambda b: dist.all_reduce(b, group=dp.group))
+    if dp.model_size > 1:
+        _in_one_bucket(
+            [p.grad for p in params if shard_of(p) is None],
+            lambda b: dist.broadcast(b, src=dp.global_rank - dp.model_rank,
+                                     group=dp.model_group))
 
 
 @contextlib.contextmanager

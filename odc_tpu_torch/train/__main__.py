@@ -44,11 +44,15 @@ index ``r % model``.  Each data index reads its slice of every global
 channels of every kernel with at least 512 outputs.  Only global rank 0
 writes checkpoints (gathered, in the one-card format; ``--resume`` shards
 a full one) and metrics; the other ranks' folders end in `` rank<r>``.
-``--qat`` refuses ``--model-parallel`` above 1.
+``--qat`` runs on the same mesh: the one-card checkpoint is sharded as
+``--resume`` shards it, and the calibration, the fake-quant twin and the
+int8 engine run on each rank's output channels.
 
     torchrun --nproc-per-node 4 -m odc_tpu_torch.train --model YOLOv2
     torchrun --nproc-per-node 4 -m odc_tpu_torch.train --model YOLOv2 \\
         --data-parallel 2 --model-parallel 2
+    torchrun --nproc-per-node 2 -m odc_tpu_torch.train --model YOLOv2 \\
+        --qat best_model.ckpt --model-parallel 2
 """
 
 from __future__ import annotations
@@ -118,7 +122,7 @@ def parse_args(argv=None):
     p.add_argument("--model-parallel", type=int, default=1,
                    help="ranks sharing the output channels of every kernel "
                    "with at least 512 outputs (data x model processes in "
-                   "all; --qat takes only 1)")
+                   "all)")
     args = p.parse_args(argv)
 
     aug_mode = "none" if args.no_augment else args.augment
@@ -140,10 +144,6 @@ def main(argv=None) -> None:
     from odc_tpu_torch.parallel import (
         check_mesh, make_mesh, maybe_initialize_distributed,
     )
-    from odc_tpu_torch.train.qat import check_qat_mesh
-
-    if args.qat:
-        check_qat_mesh(args.model_parallel)
     # Under torchrun: join the group (a no-op in one process); each data
     # index's pipelines then read only its slice of every global batch.
     dp = maybe_initialize_distributed(device=args.device)

@@ -15,10 +15,14 @@ QAT optimizes), with the trainer's batched masked-mean semantics, each
 batch weighted by its real images (``img_id >= 0``); the best checkpoint
 keys off it.
 
-Data parallelism (``mesh=DataParallel``): rank 0's state is broadcast, the
-step sums the gradients of global-count losses over the ranks
-(``make_qat_train_step(dp=)``), the engine's val loss is reduced over the
-ranks and only rank 0 writes files.
+Data and model parallelism (``mesh=DataParallel``): data index 0's state is
+broadcast over the data axis, the step sums the gradients of global-count
+losses over it (``make_qat_train_step(dp=)``), the engine's val loss is
+reduced over it and only global rank 0 writes files.  On a model axis the
+model comes sharded (``parallel.shard_model``, which ``Trainer(mesh=)``
+runs), the twin, the engine and its calibration run on each rank's output
+channels of the wide convs, and the checkpoints are written gathered, in
+the one-card format.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from odc_tpu_torch.losses.yolo_loss import Lambdas
-from odc_tpu_torch.parallel.mesh import broadcast_state
+from odc_tpu_torch.parallel.mesh import broadcast_state, model_shards
 from odc_tpu_torch.train import checkpoint as ckpt_lib
 from odc_tpu_torch.train.trainer import TrainState, _loss, _targets_of
 from odc_tpu_torch.utils.metrics import JsonlLogger
@@ -44,7 +48,8 @@ def calibrate_from_pipeline(model, pipeline, num_batches: int = 1):
     (un-augmented pixels: calibration must see deployment-distribution
     inputs).  The f32 calibration convolutions run in IEEE f32 on a card
     (TF32 off inside this call only).  Returns the [22, 2] ranges on the
-    model's device."""
+    model's device.  A model sharded over the mesh's model axis calibrates
+    sharded: every rank of its model group calls with the same pipeline."""
     from odc_tpu_torch.ops.int8_engine import calibrate
     from odc_tpu_torch.ops.qat import ieee_f32_convs
 
@@ -69,7 +74,8 @@ def make_engine_eval_step(model, lambdas: Lambdas, scales, stem: str = "s2d",
     """Val step on the DEPLOYED int8 engine: ``(state, batch) -> loss``, the
     batched masked-mean loss (a 0-dim tensor), weighted by real image count
     by the caller like the trainer's ``val_loss_mode='batched'`` path; with
-    ``dp``, this rank's share of the global batch's loss."""
+    ``dp``, this rank's share of the global batch's loss (the engine runs
+    sharded on a model axis)."""
     from odc_tpu_torch.ops.int8_engine import (
         scales_tensor, yolov2_int8_forward,
     )
@@ -87,17 +93,6 @@ def make_engine_eval_step(model, lambdas: Lambdas, scales, stem: str = "s2d",
         return total
 
     return eval_step
-
-
-def check_qat_mesh(model_parallel: Optional[int]) -> None:
-    """QAT runs on a mesh with a data axis only: ``model_parallel`` above 1
-    raises ``ValueError``."""
-    if model_parallel is not None and model_parallel > 1:
-        raise ValueError(
-            f"QAT does not run under model parallelism ({model_parallel}): "
-            "the fake-quant twin (ops/qat.py::yolov2_qat_forward) reads the "
-            "weights itself and needs its own sharding, which is queued; "
-            "fine-tune on the data axis alone (--model-parallel 1)")
 
 
 def finetune_qat(
@@ -126,13 +121,21 @@ def finetune_qat(
     (rows of kind ``qat_epoch`` and ``qat_val_epoch``) under
     ``ckpt_path``.  The augmentation draws from a ``torch.Generator`` on
     the model's device seeded with ``seed``.  ``mesh``: a
-    ``parallel.DataParallel`` whose rank and world size the pipelines carry
-    (a data axis only: :func:`check_qat_mesh`).
+    ``parallel.DataParallel`` whose data rank and size the pipelines carry;
+    with a model axis, ``state.model`` must be sharded over it already
+    (``parallel.shard_model`` before the state is built, as
+    ``Trainer(mesh=)`` does), and every rank writes through the gathered
+    state (global rank 0 writes the files).
     Returns ``(final_state, history)``."""
     from odc_tpu_torch.data.prefetch import device_prefetch
     from odc_tpu_torch.ops.qat import make_qat_train_step
 
-    check_qat_mesh(None if mesh is None else mesh.model_size)
+    if (mesh is not None and mesh.model_size > 1
+            and not model_shards(state.model)):
+        raise ValueError(
+            f"the mesh has a model axis of {mesh.model_size} but the model "
+            "is not sharded: run parallel.shard_model(model, mesh) before "
+            "building the TrainState (Trainer(mesh=) does)")
     lambdas = lambdas or Lambdas()
     device = next(state.model.parameters()).device
     qat_step = make_qat_train_step(
@@ -148,8 +151,9 @@ def finetune_qat(
         broadcast_state(state, mesh)
 
     def save(name):
+        sd = state.state_dict()  # every rank gathers the model axis's slices
         if writer:
-            ckpt_lib.save(os.path.join(ckpt_path, name), state)
+            ckpt_lib.save(os.path.join(ckpt_path, name), sd)
 
     os.makedirs(ckpt_path, exist_ok=True)
     if writer:

@@ -23,10 +23,11 @@ process, on the CPU with gloo.
   checked in the worker through memory (float64 states of up to 1.1 GB, a
   small disk).  The four ranks then run the training CLI (YOLOv1, dropout
   0.5) with ``--data-parallel 2 --model-parallel 2``, resuming (and so
-  sharding) a one-card checkpoint file.  Float64, as in
+  sharding) a one-card checkpoint file, and its ``--qat`` on the same mesh
+  (YOLOv2, one epoch) from a one-card checkpoint.  Float64, as in
   ``tests/test_torch_parallel.py``: a random network's f32 step is chaotic
-  at this size.
-* ``--qat`` refuses ``--model-parallel`` above 1.
+  at this size.  (QAT's numbers on the model axis:
+  ``tests/test_torch_qat_model_axis.py``.)
 """
 
 import io
@@ -125,28 +126,38 @@ def test_check_mesh_and_unshardable_layers():
         shard_model(wide, mesh)
 
 
-def test_qat_refuses_the_model_axis():
-    with pytest.raises(ValueError, match=r"model parallelism \(2\)"):
+def test_qat_accepts_the_model_axis(mesh_runs, capsys):
+    """``--qat`` with ``--model-parallel 2`` meets only the mesh's own check
+    in one process (the world size), as training does; under the four
+    workers the CLI ran ``finetune_qat`` on the (2, 2) mesh: every rank
+    printed the same QAT epoch (global metrics) and finished."""
+    from odc_tpu_torch.train import qat as tqat
+
+    assert not hasattr(tqat, "check_qat_mesh")
+    with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu", "--model", "YOLOv2", "--qat", "x.ckpt",
                   "--model-parallel", "2"])
-    from odc_tpu_torch.train.qat import finetune_qat
-
-    mesh = DataParallel(0, 1, torch.device("cpu"), model_size=2)
-    with pytest.raises(ValueError, match="its own sharding"):
-        finetune_qat(None, None, None, None, None, ckpt_path="unused",
-                     mesh=mesh)
+    assert e.value.code == 2
+    assert "model parallelism (2) is not supported by the 1 process" in (
+        capsys.readouterr().err)
+    epochs = [[ln for ln in o.splitlines() if ln.startswith("QAT Epoch")]
+              for o in mesh_runs["stderr"]]
+    assert len(epochs[0]) == 1 and all(e == epochs[0] for e in epochs)
+    assert all("done; QAT checkpoints" in o for o in mesh_runs["stderr"])
 
 
 # -- gloo processes --------------------------------------------------------
 
 
 def _launch(world: int, out, data_dir):
-    port = str(_free_port())
+    port = qat_port = str(_free_port())
+    while qat_port == port:  # the QAT CLI's group, after the first CLI's
+        qat_port = str(_free_port())
     procs = []
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
                    WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                   MASTER_PORT=port,
+                   MASTER_PORT=port, QAT_MASTER_PORT=qat_port,
                    PYTHONPATH=os.pathsep.join(
                        [REPO, os.environ.get("PYTHONPATH", "")]))
         procs.append(subprocess.Popen(
@@ -183,7 +194,8 @@ def mesh_runs(tmp_path_factory):
             assert p.returncode == 0, stderr.decode()[-3000:]
     ranks = {w: [torch.load(io.BytesIO(stdout), weights_only=False)
                  for stdout, _ in outputs[w]] for w in (2, 4)}
-    return dict(ranks=ranks, cli=ranks[4][0]["cli"], reference=reference,
+    return dict(ranks=ranks, cli=ranks[4][0]["cli"], qat=ranks[4][0]["qat"],
+                reference=reference,
                 stderr=[e.decode() for _, e in outputs[4]])
 
 
@@ -252,3 +264,20 @@ def test_cli_model_parallel_resumes_and_writes_on_rank_zero(mesh_runs):
     assert len(epochs[0]) == 1 and all(e == epochs[0] for e in epochs)
     assert mesh_runs["cli"]["final_step"] == 2
     assert mesh_runs["cli"]["final_finite"]
+
+
+def test_cli_qat_model_parallel_writes_gathered_checkpoints(mesh_runs):
+    """``--qat`` under the four workers (``--data-parallel 2
+    --model-parallel 2``, from a one-card YOLOv2 checkpoint at step 1):
+    only global rank 0's folder holds files, the scales once and the best
+    and final checkpoints, gathered: the final one restores into a
+    one-card YOLOv2, finite, at step 2."""
+    folders = mesh_runs["qat"]["folders"]
+    assert len(folders) == 4
+    (writer,) = [r for r in folders if " rank" not in r]
+    assert folders[writer] == sorted([
+        "metrics.jsonl", "int8_scales.npy", "best_qat_model.ckpt",
+        "final_qat_model.ckpt"])
+    assert all(not files for r, files in folders.items() if r != writer)
+    assert mesh_runs["qat"]["final_step"] == 2
+    assert mesh_runs["qat"]["final_finite"]

@@ -1,10 +1,12 @@
-"""One rank of the gloo groups of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_model_axis.py``.
+"""One rank of the gloo groups of ``tests/test_torch_parallel.py``,
+``tests/test_torch_model_axis.py`` and
+``tests/test_torch_qat_model_axis.py``.
 
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
-        python tests/torch_dp_worker.py OUT_DIR DATA_DIR [model-axis]
+        python tests/torch_dp_worker.py OUT_DIR DATA_DIR [model-axis|qat]
 
-With ``model-axis``: :func:`main_model_axis`.  Otherwise:
+With ``model-axis``: :func:`main_model_axis`; with ``qat``:
+:func:`main_qat` (DATA_DIR unused).  Otherwise:
 Joins the group through ``maybe_initialize_distributed`` (the ``torchrun``
 environment path) and writes ``OUT_DIR/rank<r>.pt``: YOLOv2 at 64x64 over
 two data-parallel steps (global batch 4, momentum 0.9, device augmentation)
@@ -226,7 +228,11 @@ def main_model_axis(out_dir: str, data_dir: str) -> None:
     checkpoint global rank 0 writes (step 1); after it global rank 0
     deletes the checkpoints and adds ``"cli"``: the files of every rank's
     folder and whether the final checkpoint restores into a one-card
-    YOLOv1, finite, at step 2.  The results (:func:`model_axis_step`'s by
+    YOLOv1, finite, at step 2.  Then, in a new group on ``QAT_MASTER_PORT``,
+    the CLI's ``--qat`` (one epoch, device augmentation) on the same mesh
+    from a one-card YOLOv2 checkpoint global rank 0 writes; global rank 0
+    adds ``"qat"`` as ``"cli"`` (the final checkpoint at step 1) and
+    deletes the checkpoints.  The results (:func:`model_axis_step`'s by
     model; rank 0's hold float32 updates of up to 0.6 GB, kept off the
     small disk) go to standard output as one ``torch.save`` payload;
     everything printed goes to standard error."""
@@ -268,22 +274,218 @@ def _model_axis_run(out_dir: str, data_dir: str) -> dict:
               "--model-parallel", "2", "--resume", cli_ckpt,
               "--dataset-dir", data_dir,
               "--ckpt-root", os.path.dirname(runs_dir)])
-    if dp.is_writer:  # the CLI tore the group down: the others are done
+    if dp.is_writer:
         os.unlink(cli_ckpt)
-        folders = {r: sorted(os.listdir(os.path.join(runs_dir, r)))
-                   for r in os.listdir(runs_dir)}
-        (writer,) = [r for r in folders if " rank" not in r]
-        state = checkpoint.restore(
-            os.path.join(runs_dir, writer, "final_model.ckpt"),
-            TrainState(_model("YOLOv1", 0, torch.float32)))
-        result["cli"] = {
-            "folders": folders, "final_step": state.step,
+        result["cli"] = _cli_run(runs_dir, "final_model.ckpt",
+                                 _model("YOLOv1", 0, torch.float32))
+    # The CLI tore the group down: a new one carries the QAT run.
+    os.environ["MASTER_PORT"] = os.environ["QAT_MASTER_PORT"]
+    dist.init_process_group("gloo", init_method="env://")
+    qat_ckpt = os.path.join(out_dir, "YOLOv2-qat.ckpt")
+    if dist.get_rank() == 0:
+        checkpoint.save(qat_ckpt, TrainState(
+            _model("YOLOv2", 3, torch.float32), step=1))
+    dist.barrier()
+    runs_dir = os.path.join(out_dir, "ckpts", "YOLOv2")
+    cli_main(["--device", "cpu", "--model", "YOLOv2", "--augment", "device",
+              "--batch-size", "4", "--image-size", "64",
+              "--data-parallel", "2", "--model-parallel", "2",
+              "--qat", qat_ckpt, "--qat-epochs", "1",
+              "--dataset-dir", data_dir,
+              "--ckpt-root", os.path.dirname(runs_dir)])
+    if dp.is_writer:  # the CLI tore the group down: the others are done
+        os.unlink(qat_ckpt)
+        result["qat"] = _cli_run(runs_dir, "final_qat_model.ckpt",
+                                 _model("YOLOv2", 0, torch.float32))
+    return result
+
+
+def _cli_run(runs_dir: str, final: str, model) -> dict:
+    """The files of every rank's folder under ``runs_dir``, and the step of
+    the writer's ``final`` checkpoint restored into the one-card ``model``
+    and whether it is finite; then the checkpoints are deleted."""
+    from odc_tpu_torch.train import TrainState, checkpoint
+
+    folders = {r: sorted(os.listdir(os.path.join(runs_dir, r)))
+               for r in os.listdir(runs_dir)}
+    (writer,) = [r for r in folders if " rank" not in r]
+    state = checkpoint.restore(os.path.join(runs_dir, writer, final),
+                               TrainState(model))
+    for name in folders[writer]:
+        if name.endswith(".ckpt"):
+            os.unlink(os.path.join(runs_dir, writer, name))
+    return {"folders": folders, "final_step": state.step,
             "final_finite": all(bool(t.isfinite().all()) for t in
                                 state.model.state_dict().values())}
-        for name in folders[writer]:
-            if name.endswith(".ckpt"):
-                os.unlink(os.path.join(runs_dir, writer, name))
-    return result
+
+
+# -- QAT on the model axis ---------------------------------------------------
+
+QAT_LR = 1e-4
+# The engine's stop_after points: backbone convs 0-19, the neck input (21),
+# the neck output (22); None runs to the head.
+QAT_STOPS = (*range(20), 21, 22, None)
+
+
+def qat_model():
+    """The QAT runs' network: the port's seeded YOLOv2 init (BN at
+    identity), f32, eval mode."""
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+
+    return YOLOv2(dtype=torch.float32, device="cpu", seed=0).eval()
+
+
+def qat_arrays():
+    """The QAT runs' batch as numpy arrays in ``Batch`` order: two seeded
+    64x64 images with 1-3 boxes each (targets from ``assign_numpy``, 4
+    slots)."""
+    from odc_tpu_torch.ops.assign import assign_numpy
+
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 255, (2,) + HW + (3,), dtype=np.uint8)
+    rows = []
+    for _ in range(len(images)):
+        n = int(rng.integers(1, 4))
+        x1 = rng.uniform(0, HW[1] - 34, n)
+        y1 = rng.uniform(0, HW[0] - 34, n)
+        boxes = np.stack([x1, y1, x1 + rng.uniform(10, 33, n),
+                          y1 + rng.uniform(10, 33, n)], -1)
+        rows.append(assign_numpy(boxes, rng.integers(0, 20, n), HW,
+                                 mode="v2", max_boxes=4))
+    fields = [np.stack([r[i] for r in rows]) for i in range(6)]
+    return (images, *fields, np.arange(len(images), dtype=np.int32))
+
+
+def _crc(t: torch.Tensor) -> int:
+    return zlib.crc32(t.detach().contiguous().numpy())
+
+
+def _qat_step(model, scales, exact, init, dp=None):
+    """One QAT step (momentum 0.9, weight decay 5e-4, no augmentation) of
+    ``model`` from the gathered state ``init`` on :func:`qat_arrays`'
+    batch.  Returns the metrics as floats, the gathered state after the
+    step and the ``.grad`` of every parameter."""
+    from odc_tpu_torch.data.pipeline import Batch
+    from odc_tpu_torch.losses.yolo_loss import Lambdas
+    from odc_tpu_torch.ops.qat import make_qat_train_step
+    from odc_tpu_torch.train import TrainState
+
+    state = TrainState(model)
+    state.load_state_dict(init)
+    step = make_qat_train_step(model, Lambdas(), scales, momentum=0.9,
+                               weight_decay=5e-4, exact=exact, dp=dp)
+    batch = Batch(*(torch.from_numpy(a) for a in qat_arrays()))
+    state, metrics = step(state, batch, QAT_LR)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return ({k: float(v) for k, v in metrics.items()}, state.state_dict(),
+            grads)
+
+
+def qat_model_axis(out_dir: str) -> dict:
+    """The QAT path on a (1, 2) mesh, f32 at 64x64, the scales
+    ``OUT_DIR/scales.npy`` (the test's one-process ``calibrate``).  Every
+    rank returns its sharded calibration ranges; a CRC-32 of the sharded
+    engine's output at each of :data:`QAT_STOPS` (stem s2d) and of its
+    plain-stem head; for one exact (``"exact"``) and one twin (``"twin"``)
+    QAT step from the same init, the metrics, the gathered state's digests
+    and the digests of the replicated parameters' gradients; the gradient
+    values ``all_reduce_grads`` leaves of ones set to global rank + 1
+    (``"grad_values"``).  Then, with
+    the group gone, each rank checks its half against an unsharded copy of
+    the initial model: global rank 0 whether each engine output equals the
+    unsharded engine's bit for bit (``"codes_equal"``), global rank 1 each
+    step's one-process metrics and the relative l2 of the sharded update
+    from the one-process update, globally and at the worst leaf.  Global
+    rank 0 adds the twin step's update of every parameter (for the test's
+    comparison with the JAX package)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from odc_tpu_torch.ops import int8_engine as te
+    from odc_tpu_torch.parallel import (
+        all_reduce_grads, make_mesh, maybe_initialize_distributed,
+        model_shards, shard_model,
+    )
+    from odc_tpu_torch.parallel.mesh import shard_of
+    from odc_tpu_torch.train import TrainState
+
+    dp = make_mesh(maybe_initialize_distributed(device="cpu"), 2)
+    torch.set_num_threads(2)
+    scales = torch.from_numpy(np.load(os.path.join(out_dir, "scales.npy")))
+    images = torch.from_numpy(qat_arrays()[0])
+    model = qat_model()
+    one_card = copy.deepcopy(model)
+    shard_model(model, dp)
+    sharded = model_shards(model)
+    res = {"sharded": sorted(sharded),
+           "ranges": te.calibrate(model, images)}
+    runs = [("s2d", stop) for stop in QAT_STOPS] + [("plain", None)]
+    codes = {(stem, stop): te.yolov2_int8_forward(
+        model, images, scales, stem=stem, stop_after=stop)
+        for stem, stop in runs}
+    res["code_digests"] = {k: _crc(v) for k, v in codes.items()}
+    # Gathered (the one-card layout) and copied: a state dict shares the
+    # replicated tensors' storage with the model, which the steps move.
+    init = {k: v if k == "step" else {n: t.clone() for n, t in v.items()}
+            for k, v in TrainState(model).state_dict().items()}
+    updates = {}
+    for mode, exact in (("exact", True), ("twin", False)):
+        metrics, after, grads = _qat_step(model, scales, exact, init, dp)
+        res[mode] = {
+            "metrics": metrics, "digests": state_digests(after),
+            "replicated_grads": {n: _crc(g) for n, g in grads.items()
+                                 if n not in sharded}}
+        updates[mode] = {n: after["model"][n] - init["model"][n]
+                         for n, _ in one_card.named_parameters()}
+    # all_reduce_grads on gradients that differ by rank: the sharded ones
+    # keep the rank's, the replicated ones become model rank 0's.
+    for p in model.parameters():
+        p.grad = torch.full_like(p, dp.global_rank + 1.0)
+    all_reduce_grads(model.parameters(), dp)
+    res["grad_values"] = {
+        kind: sorted({v for p in model.parameters()
+                      if (shard_of(p) is None) == (kind == "replicated")
+                      for v in p.grad.unique().tolist()})
+        for kind in ("replicated", "sharded")}
+    dist.destroy_process_group()
+    del model
+    if dp.is_writer:
+        res["codes_equal"] = {}
+        for (stem, stop), got in codes.items():
+            want = te.yolov2_int8_forward(one_card, images, scales,
+                                          stem=stem, stop_after=stop)
+            res["codes_equal"][stem, stop] = (
+                got.dtype == want.dtype and torch.equal(got, want))
+        res["twin"]["update"] = updates["twin"]
+        return res
+    for mode, exact in (("exact", True), ("twin", False)):
+        out = res[mode]
+        out["metrics_one_card"], ref, _ = _qat_step(one_card, scales, exact,
+                                                    init)
+        num = den = 0.0
+        worst = (0.0, "")
+        for n, u in updates[mode].items():
+            want = ref["model"][n] - init["model"][n]
+            d = float((u - want).norm())
+            num += d * d
+            den += float(want.norm()) ** 2
+            worst = max(worst, (d / max(float(want.norm()), 1e-30), n))
+        out["update_rel_l2"] = (num / den) ** 0.5
+        out["update_worst_leaf"] = worst
+    return res
+
+
+def main_qat(out_dir: str) -> None:
+    """:func:`qat_model_axis`'s result to standard output as one
+    ``torch.save`` payload (rank 0's float32 update is 0.2 GB, kept off
+    the small disk); everything printed goes to standard error."""
+    with contextlib.redirect_stdout(sys.stderr):
+        result = qat_model_axis(out_dir)
+    buf = io.BytesIO()
+    torch.save(result, buf)
+    sys.stdout.buffer.write(buf.getvalue())
+    sys.stdout.flush()
 
 
 def main(out_dir: str, data_dir: str) -> None:
@@ -310,5 +512,7 @@ def main(out_dir: str, data_dir: str) -> None:
 if __name__ == "__main__":
     if sys.argv[3:] == ["model-axis"]:
         main_model_axis(*sys.argv[1:3])
+    elif sys.argv[3:] == ["qat"]:
+        main_qat(sys.argv[1])
     else:
         main(*sys.argv[1:3])
