@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from odc_tpu_torch.ops.cuda.nms_kernel import suppress
+from odc_tpu_torch.utils.metrics import span
 
 
 def _gather_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -35,7 +36,9 @@ def sorted_candidates(
     first: (order [B, k], boxes [B, k, 4], survivors [B, k] bool)."""
     n = boxes.shape[1]
     k = min(max_keep, n)
-    neg_inf = torch.tensor(float("-inf"), dtype=score.dtype, device=score.device)
+    with span("sync", site="sorted_candidates.neg_inf"):
+        neg_inf = torch.tensor(float("-inf"), dtype=score.dtype,
+                               device=score.device)
     score = torch.where(valid, score, neg_inf)
     top_score, order = torch.sort(score, dim=-1, descending=True, stable=True)
     order = order[:, :k]

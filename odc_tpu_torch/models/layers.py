@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from odc_tpu_torch.core.image import (  # noqa: F401  (re-exported)
     IMAGENET_MEAN, IMAGENET_STD, imagenet_normalize,
 )
+from odc_tpu_torch.utils.metrics import span
 
 
 class TorchBatchNorm(nn.Module):
@@ -281,16 +282,18 @@ class ConvBnLeaky(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        if self._uses_int8(x):
-            y = self._int8_conv(x)
-        else:
-            h = x.to(dt)
-            if self.pad_input:
-                (t, b), (l, r) = self.pads(*h.shape[1:3])
-                h = F.pad(h, (0, 0, l, r, t, b))
-            y = apply_layer(self.conv, h, self._conv_nhwc, dt)
-        y = self.bn(y)
-        return F.leaky_relu(y, self.negative_slope).to(dt)
+        with span("conv"):
+            if self._uses_int8(x):
+                y = self._int8_conv(x)
+            else:
+                h = x.to(dt)
+                if self.pad_input:
+                    (t, b), (l, r) = self.pads(*h.shape[1:3])
+                    h = F.pad(h, (0, 0, l, r, t, b))
+                y = apply_layer(self.conv, h, self._conv_nhwc, dt)
+        with span("bn_leaky"):
+            y = self.bn(y)
+            return F.leaky_relu(y, self.negative_slope).to(dt)
 
     def _conv_nhwc(self, h, w, b):
         return F.conv2d(h.permute(0, 3, 1, 2), w, b, stride=self.stride,

@@ -17,6 +17,8 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from odc_tpu_torch.utils.metrics import span
+
 # Reference anchors, (width, height) in 13x13-grid units.
 YOLOV2_ANCHORS: Tuple[Tuple[float, float], ...] = (
     (1.3221, 1.73145),
@@ -75,7 +77,8 @@ def decode_v2(
     """Decode a YOLOv2 head output ``y`` [B, Hg, Wg, A, 5 + C] for an input
     of ``image_hw`` pixels."""
     _, hg, wg, _, _ = y.shape
-    anchors_arr = torch.tensor(anchors, dtype=y.dtype, device=y.device)
+    with span("sync", site="decode_v2.anchors"):
+        anchors_arr = torch.tensor(anchors, dtype=y.dtype, device=y.device)
     pw = anchors_arr[:, 0]
     ph = anchors_arr[:, 1]
 
@@ -159,10 +162,11 @@ def decode_v3(
     flat: list = [[] for _ in range(6)]
     for s, y in enumerate(ys):
         b, hg, wg, a, _ = y.shape
-        grp = torch.tensor(
-            anchors[3 * (num_scales - 1 - s) : 3 * (num_scales - s)],
-            dtype=y.dtype, device=y.device,
-        )  # [3, 2] pixels
+        with span("sync", site="decode_v3.anchors"):
+            grp = torch.tensor(
+                anchors[3 * (num_scales - 1 - s) : 3 * (num_scales - s)],
+                dtype=y.dtype, device=y.device,
+            )  # [3, 2] pixels
         stride_h = h / hg
         stride_w = w / wg
 

@@ -36,6 +36,7 @@ from odc_tpu_torch.models.backbones.darknet19 import Darknet19Backbone
 from odc_tpu_torch.ops.cuda.superstem_kernel import fold_weights, superstem
 from odc_tpu_torch.ops.int8_engine import scales_tensor, yolov2_int8_forward
 from odc_tpu_torch.ops.quantize import int8_conv_bn_leaky
+from odc_tpu_torch.utils.metrics import count, span
 
 
 def stem_weights(model):
@@ -119,12 +120,7 @@ def make_infer_fn(
         return model(images, stem_out=superstem(images, w1, w2),
                      neck_override=int8_neck_conv if int8_neck else None)
 
-    @torch.no_grad()
-    def infer(images, conf_thre=conf_thre, iou_thre=iou_thre):
-        images = torch.as_tensor(images, device=device)
-        y = forward(images)
-        det = model.decode(y, images.shape[1:3])
-        b = images.shape[0]
+    def nms_outputs(det, b, conf_thre, iou_thre):
         num_cls = det.cls_spec.shape[-1]
         boxes = det.boxes.reshape(b, -1, 4)
         conf = det.conf.reshape(b, -1)
@@ -148,6 +144,17 @@ def make_infer_fn(
             o_cls.max(-1).values,
             o_keep,
         )
+
+    @torch.no_grad()
+    def infer(images, conf_thre=conf_thre, iou_thre=iou_thre):
+        with span("infer"):
+            images = torch.as_tensor(images, device=device)
+            count("images", images.shape[0])
+            y = forward(images)
+            with span("decode"):
+                det = model.decode(y, images.shape[1:3])
+            with span("nms"):
+                return nms_outputs(det, images.shape[0], conf_thre, iou_thre)
 
     return infer
 
@@ -194,18 +201,28 @@ def make_native_infer_fn(
 
     @torch.no_grad()
     def infer(images, valid_hw, conf_thre=conf_thre, iou_thre=iou_thre):
-        images = torch.as_tensor(images, device=device)
-        valid_hw = torch.as_tensor(valid_hw, device=device).long()
-        if int8_scales is not None:
-            y = yolov2_int8_forward(
-                model, images, scales=int8_scales,
-                num_anchor_box=model.num_anchor_box, num_cls=model.num_cls,
-                stem=int8_stem, valid_hw=valid_hw,
-            )
-        else:
-            y = model(images, valid_hw=valid_hw)
-        b, hg, wg, _, _ = y.shape
-        det = model.decode(y, (hg, wg))  # grid units: cell size 1
+        with span("infer"):
+            images = torch.as_tensor(images, device=device)
+            count("images", images.shape[0])
+            if not torch.is_tensor(valid_hw) or valid_hw.device != device:
+                with span("sync", site="valid_hw"):
+                    valid_hw = torch.as_tensor(valid_hw, device=device)
+            valid_hw = valid_hw.long()
+            if int8_scales is not None:
+                y = yolov2_int8_forward(
+                    model, images, scales=int8_scales,
+                    num_anchor_box=model.num_anchor_box,
+                    num_cls=model.num_cls, stem=int8_stem, valid_hw=valid_hw,
+                )
+            else:
+                y = model(images, valid_hw=valid_hw)
+            with span("decode"):
+                det = model.decode(y, y.shape[1:3])  # grid units: cell 1
+            with span("nms"):
+                return native_nms_outputs(det, valid_hw, conf_thre, iou_thre)
+
+    def native_nms_outputs(det, valid_hw, conf_thre, iou_thre):
+        b, hg, wg = det.conf.shape[:3]
         gh, gw = valid_hw[:, 0] // 32, valid_hw[:, 1] // 32
         dt = det.boxes.dtype
         sx = (valid_hw[:, 1] / gw).to(dt)  # native cell width
