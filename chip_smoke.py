@@ -8,6 +8,11 @@ with ``nvcc``, holds each kernel against its plain PyTorch version on the
 card, then drives the main paths, each with the launch counts set to 0
 just before and read just after:
 
+* the conv blocks' fused epilogue (bias + BN + leaky + bf16 cast) — phase
+  bias_bn_leaky: a YOLOv2-416 call at batch 64 and a YOLOv3-416 call at
+  batch 256 with every block's output held bitwise against the block run
+  on the unfused route, one launch a block, then the kernel's device ms a
+  call beside its bound (4 bytes an element) and the plain version's;
 * serving — YOLOv2-416 bf16 end-to-end inference through ``make_infer_fn``
   (fused superstem -> Darknet-19 -> neck -> head -> decode -> NMS) on a few
   batches, checking that both kernels launched once per call and that the
@@ -383,8 +388,12 @@ def _calibrate_bn(model, images, gen):
     layer by layer, then randomize them (mean + N(0, 0.2) std, var x
     U(0.5, 1.5)): activations keep a trained network's O(1) scale through
     all 20 layers (at the plain random init they shrink towards the biases)
-    and the folding is non-trivial."""
-    from odc_tpu_torch.models.layers import TorchBatchNorm
+    and the folding is non-trivial.  The pass runs the blocks' unfused
+    epilogue: the fused kernel reads the statistics without calling the BN
+    module, whose hook sets them."""
+    from unittest import mock
+
+    from odc_tpu_torch.models.layers import ConvBnLeaky, TorchBatchNorm
 
     def set_stats(bn, args):
         x = args[0].float().reshape(-1, args[0].shape[-1])
@@ -397,7 +406,8 @@ def _calibrate_bn(model, images, gen):
 
     hooks = [m.register_forward_pre_hook(set_stats)
              for m in model.modules() if isinstance(m, TorchBatchNorm)]
-    with torch.no_grad():
+    with torch.no_grad(), mock.patch.object(
+            ConvBnLeaky, "_fuses_epilogue", lambda self, x: False):
         model(images)
     for h in hooks:
         h.remove()
@@ -498,10 +508,102 @@ def _gap_threshold(conf: torch.Tensor, lo: int, hi: int) -> float:
     return float((s[r] + s[r + 1]) / 2)
 
 
+def _epilogue_call(name, batch):
+    """One ``make_infer_fn`` call of ``name`` (calibrated, bf16, 416 x 416)
+    at ``batch`` in which every conv block's output (the fused kernel's)
+    is held bitwise against the same block run on the unfused route from
+    the same input.  Returns the launches of the call and, per distinct
+    block output shape, (count a call, the block, its output)."""
+    from unittest import mock
+
+    from odc_tpu_torch.models.layers import ConvBnLeaky
+    from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.models.yolov3 import YOLOv3
+    from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import bias_bn_leaky
+    from odc_tpu_torch.ops.detect import make_infer_fn
+
+    cls = {"YOLOv2": YOLOv2, "YOLOv3": YOLOv3}[name]
+    model = cls(dtype=torch.bfloat16, device=DEVICE, seed=SEED).eval()
+    gen = torch.Generator().manual_seed(SEED + 11)
+    images = torch.randint(0, 256, (batch, *HW, 3), generator=gen,
+                           dtype=torch.uint8).to(DEVICE)
+    _calibrate_bn(model, images[:8], gen)
+    infer = make_infer_fn(model, 0.9, 0.5, MAX_KEEP)
+    shapes, bad = {}, []
+
+    def check(block, args, out):
+        with mock.patch.object(ConvBnLeaky, "_fuses_epilogue",
+                               lambda self, x: False):
+            ref = block.forward(args[0])
+        if not torch.equal(out, ref):
+            bad.append((tuple(out.shape), int((out != ref).sum())))
+        entry = shapes.setdefault(tuple(out.shape), [0, block, out])
+        entry[0] += 1
+
+    hooks = [m.register_forward_hook(check) for m in model.modules()
+             if isinstance(m, ConvBnLeaky)]
+    try:
+        before = bias_bn_leaky.launches
+        with torch.no_grad():
+            infer(images)
+        sync()
+        launches = bias_bn_leaky.launches - before
+    finally:
+        for h in hooks:
+            h.remove()
+    if bad:
+        raise AssertionError(f"{name}: fused epilogue != unfused route at "
+                             f"(shape, differing elements) {bad}")
+    blocks = sum(n for n, _, _ in shapes.values())
+    if launches != blocks:
+        raise AssertionError(f"{name}: {launches} kernel launches for "
+                             f"{blocks} blocks")
+    print(f"{name} b{batch}: {blocks} blocks, {len(shapes)} shapes, every "
+          f"one bitwise the unfused route; {launches} launches a call")
+    return launches, shapes
+
+
+def phase_bias_bn_leaky():
+    """The conv blocks' fused inference epilogue (bias + BN + leaky + bf16
+    cast, ``csrc/bias_bn_leaky.cu``) at the bulk cells' shapes: YOLOv2-416
+    at batch 64 and YOLOv3-416 at batch 256, every block of a call bitwise
+    the unfused route; then, per call, the kernel's device ms (a CUDA graph
+    a shape) beside its bound (4 bytes an element at HBM bandwidth) and the
+    plain version's (ATen's separate passes)."""
+    from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import (
+        bias_bn_leaky, bias_bn_leaky_plain,
+    )
+
+    out = {}
+    for name, batch in (("YOLOv2", BATCH), ("YOLOv3", V3_BATCH)):
+        launches, shapes = _epilogue_call(name, batch)
+        ms = plain_ms = bound = 0.0
+        for shape, (n, block, y) in sorted(shapes.items()):
+            bn = block.bn
+            args = (block.conv.bias, bn.running_mean, bn.running_var,
+                    bn.weight, bn.bias, bn.eps, block.negative_slope)
+            y = y.contiguous()
+            k_ms = graph_ms(lambda: bias_bn_leaky(y, *args), 3)
+            p_ms = graph_ms(lambda: bias_bn_leaky_plain(y, *args), 1)
+            b_ms = 4 * y.numel() / HBM_BPS * 1e3
+            ms, plain_ms, bound = ms + n * k_ms, plain_ms + n * p_ms, bound + n * b_ms
+            print(f"  {shape} x{n}: kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
+                  f"({100 * b_ms / k_ms:.1f}%), plain {p_ms:.4f}")
+        del shapes
+        torch.cuda.empty_cache()
+        print(f"{name} b{batch} a call: kernel {ms:.3f} ms, bound {bound:.3f} "
+              f"ms (bytes, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+        out[name] = {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms,
+                     "launches_per_call": launches}
+    return out
+
+
 def phase_e2e():
     """The main path: YOLOv2-416 bf16, a few batches through make_infer_fn."""
     from odc_tpu_torch.core.nms import sorted_candidates
+    from odc_tpu_torch.models.layers import ConvBnLeaky
     from odc_tpu_torch.models.yolov2 import YOLOv2
+    from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import bias_bn_leaky
     from odc_tpu_torch.ops.cuda.nms_kernel import suppress, suppress_plain
     from odc_tpu_torch.ops.cuda.superstem_kernel import (
         superstem, superstem_plain,
@@ -532,10 +634,13 @@ def phase_e2e():
 
     calls = ([(requests[0], 0.9), (requests[0], gap_thre)]
              + [(requests[1], 0.9)] * (3 + TIMED_CALLS))
-    superstem.launches = suppress.launches = 0
+    # The fused stem runs stages 1-2; every other block fuses its epilogue.
+    blocks = sum(isinstance(m, ConvBnLeaky) for m in model.modules()) - sum(
+        len(stage) for stage in model.backbone.stages[:2])
+    superstem.launches = suppress.launches = bias_bn_leaky.launches = 0
     outs, call_ms = [], []
     for i, (images, conf_thre) in enumerate(calls):
-        before = (superstem.launches, suppress.launches)
+        before = (superstem.launches, suppress.launches, bias_bn_leaky.launches)
         t = time.perf_counter()
         out = infer(images, conf_thre=conf_thre)
         sync()
@@ -543,10 +648,14 @@ def phase_e2e():
             call_ms.append((time.perf_counter() - t) * 1e3)
         if (superstem.launches, suppress.launches) != (before[0] + 1, before[1] + 1):
             raise AssertionError(f"call {i}: kernels did not launch once each")
+        if bias_bn_leaky.launches - before[2] != blocks:
+            raise AssertionError(f"call {i}: the fused epilogue did not "
+                                 f"launch once for each of {blocks} blocks")
         if i < 3:
             outs.append((images, conf_thre, out))
     launches = {"superstem": superstem.launches,
-                "nms_suppress": suppress.launches}
+                "nms_suppress": suppress.launches,
+                "bias_bn_leaky": bias_bn_leaky.launches}
     print(f"main path: {len(calls)} calls, launches {launches}")
 
     for images, conf_thre, (boxes, conf, cls, keep) in outs:
@@ -4325,6 +4434,8 @@ def main() -> int:
     nms = phase_nms()
     stem = phase_superstem()
     warp = phase_warp()
+    epilogue = phase_bias_bn_leaky()
+    torch.cuda.empty_cache()
     launches, img_s, model, requests = phase_e2e()
     phase_matmul()
     counters = {"int8_matmul": matmul, "nms_suppress": suppress,
@@ -4437,6 +4548,15 @@ def main() -> int:
                        + qat_mp_launches["int8_matmul"]
                        + v3_launches8["int8_matmul"]
                        + served["int8_matmul"])),
+        # The fused epilogue: its launches are those of phase e2e's calls
+        # (one a block, 19 a YOLOv2 call); times and bounds are per call of
+        # the bulk cells' shapes (phase bias_bn_leaky).
+        dict(name="bias_bn_leaky", route="cuda",
+             source="odc_tpu_torch/csrc/bias_bn_leaky.cu",
+             replaces=None, launches=launches["bias_bn_leaky"],
+             bitwise_unfused=True, **{f"{m}_{k}": v
+                                      for m, d in epilogue.items()
+                                      for k, v in d.items()}),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
           f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "

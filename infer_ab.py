@@ -15,7 +15,8 @@ card, the median of 20 calls (after 3 warm-up calls) of:
 * ``make_infer_fn(int8_scales=...)``, s2d stem, calibrated on 32 images, at
   batch 64;
 * ``make_native_infer_fn(int8_scales=...)`` at batch 16 in a 384x512 bucket
-  (host-bound: about 1500 eager launches a call).
+  (host-bound: about 1500 eager launches a call);
+* ``make_native_infer_fn`` bf16 in the same bucket.
 
 Each call ends in ``torch.cuda.synchronize()``; the host clock measures it.
 The runs go this, other, other, this for each round.  Prints the card's
@@ -32,12 +33,13 @@ import statistics
 import subprocess
 import sys
 
-PATHS = ("bf16_b64", "int8_b64", "native_int8_b16")
+PATHS = ("bf16_b64", "int8_b64", "native_int8_b16", "native_bf16_b16")
 
 # Runs inside one tree (``python -c`` from its root puts it on sys.path).
 _CHILD = r"""
-import json, statistics, time, torch
-from odc_tpu_torch.models.layers import TorchBatchNorm
+import contextlib, json, statistics, time, torch
+from unittest import mock
+from odc_tpu_torch.models.layers import ConvBnLeaky, TorchBatchNorm
 from odc_tpu_torch.models.yolov2 import YOLOv2
 from odc_tpu_torch.ops.cuda import build
 from odc_tpu_torch.ops.detect import make_infer_fn, make_native_infer_fn
@@ -60,7 +62,13 @@ def set_stats(bn, args):
     bn.running_var.copy_(x.var(0))
 hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
          if isinstance(m, TorchBatchNorm)]
-with torch.no_grad():
+# A tree whose blocks fuse their epilogue skips the BN module on the card:
+# the calibration pass runs the unfused one, so the hooks see every block.
+unfused = (mock.patch.object(ConvBnLeaky, "_fuses_epilogue",
+                             lambda self, x: False)
+           if hasattr(ConvBnLeaky, "_fuses_epilogue")
+           else contextlib.nullcontext())
+with torch.no_grad(), unfused:
     model(rand(8, 416, 416, 3))
 for h in hooks:
     h.remove()
@@ -73,6 +81,8 @@ calls = {
                  (images,)),
     "native_int8_b16": (make_native_infer_fn(model, 0.9, 0.5, 64,
                                              int8_scales=scales),
+                        (bucket, valid_hw)),
+    "native_bf16_b16": (make_native_infer_fn(model, 0.9, 0.5, 64),
                         (bucket, valid_hw)),
 }
 out = {}

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from odc_tpu_torch.core.image import (  # noqa: F401  (re-exported)
     IMAGENET_MEAN, IMAGENET_STD, imagenet_normalize,
 )
-from odc_tpu_torch.utils.metrics import span
+from odc_tpu_torch.utils.metrics import count, span
 
 
 class TorchBatchNorm(nn.Module):
@@ -168,9 +168,12 @@ def rematerialize(fn: nn.Module, *args):
 
 
 def apply_layer(layer: nn.Module, x: torch.Tensor,
-                op: Callable, dtype: torch.dtype) -> torch.Tensor:
+                op: Callable, dtype: torch.dtype,
+                with_bias: bool = True) -> torch.Tensor:
     """``op(x, weight, bias)`` with ``layer``'s weight and bias cast to
-    ``dtype``; ``op``'s output carries the layer's channels last.
+    ``dtype``; ``op``'s output carries the layer's channels last.  With
+    ``with_bias`` False the bias is left out (``op`` gets None): the caller
+    adds it itself.
 
     A layer whose output channels are sharded over the mesh's model axis
     (``layer.model_shard``, set by ``parallel/mesh.py::shard_model``) holds
@@ -181,7 +184,7 @@ def apply_layer(layer: nn.Module, x: torch.Tensor,
     then the full bias, replicated on every rank, is added: its gradient is
     the same on every rank of the model group."""
     w = layer.weight.to(dtype)
-    b = None if layer.bias is None else layer.bias.to(dtype)
+    b = None if layer.bias is None or not with_bias else layer.bias.to(dtype)
     shard = getattr(layer, "model_shard", None)
     if shard is None:
         return op(x, w, b)
@@ -229,7 +232,13 @@ class ConvBnLeaky(nn.Module):
 
     On a mesh with a model axis the conv of a block with at least 512
     outputs keeps only its rank's output channels (:func:`apply_layer`);
-    BN and leaky run on the gathered, replicated map."""
+    BN and leaky run on the gathered, replicated map.
+
+    Inference in bf16 on the card (:meth:`_fuses_epilogue`): the conv runs
+    without its bias, and the bias add, BN, leaky and the cast run as one
+    hand-written kernel (``ops/cuda/bias_bn_leaky_kernel.py``), bitwise
+    equal to the separate passes.  Training, the CPU, other dtypes, a
+    sharded conv and the int8 conv keep the separate passes."""
 
     def __init__(
         self,
@@ -280,8 +289,18 @@ class ConvBnLeaky(nn.Module):
         return (self.int8_dynamic and not self.training
                 and self.conv.kernel_size == (3, 3) and x.shape[-1] >= 128)
 
+    def _fuses_epilogue(self, x: torch.Tensor) -> bool:
+        """Whether the bias, BN, leaky and the cast run as one kernel: an
+        eval-mode bf16 block on a CUDA input whose conv is neither sharded
+        nor int8."""
+        return (not self.training and x.is_cuda
+                and self.dtype == torch.bfloat16
+                and getattr(self.conv, "model_shard", None) is None
+                and not self._uses_int8(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        fused = self._fuses_epilogue(x)
         with span("conv"):
             if self._uses_int8(x):
                 y = self._int8_conv(x)
@@ -290,8 +309,20 @@ class ConvBnLeaky(nn.Module):
                 if self.pad_input:
                     (t, b), (l, r) = self.pads(*h.shape[1:3])
                     h = F.pad(h, (0, 0, l, r, t, b))
-                y = apply_layer(self.conv, h, self._conv_nhwc, dt)
+                y = apply_layer(self.conv, h, self._conv_nhwc, dt,
+                                with_bias=not fused)
         with span("bn_leaky"):
+            if fused:
+                from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import (
+                    bias_bn_leaky,
+                )
+
+                count("fused_epilogue")
+                bn = self.bn
+                return bias_bn_leaky(
+                    y.contiguous(), self.conv.bias, bn.running_mean,
+                    bn.running_var, bn.weight, bn.bias, bn.eps,
+                    self.negative_slope)
             y = self.bn(y)
             return F.leaky_relu(y, self.negative_slope).to(dt)
 

@@ -28,13 +28,16 @@ BUILD_DIR = _PKG.parent / "build" / "cuda"
 # bitwise equal to the plain PyTorch version: a contracted a*b+c rounds once
 # where PyTorch rounds twice, and an IoU exactly at the threshold would flip.
 # The warp takes it for its sample positions (slope*o + offset), whose last
-# bit decides tap fractions on images with steep steps.
+# bit decides tap fractions on images with steep steps; the conv blocks'
+# epilogue for BN's (x - mean) * inv * weight + shift, which ATen rounds op
+# by op.
 SOURCES: Dict[str, tuple] = {
     "nms_suppress": ("nms_suppress.cu", ["-fmad=false"]),
     "superstem": ("superstem.cu", []),
     "warp_affine": ("warp_affine.cu", ["-fmad=false"]),
     # -ldl: the wgmma route looks up cuTensorMapEncodeTiled with dlsym.
     "int8_matmul": ("int8_matmul.cu", ["-ldl"]),
+    "bias_bn_leaky": ("bias_bn_leaky.cu", ["-fmad=false"]),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +59,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "matmul_s8s8s32": [_P, _P, _P, _I, _I, _I, _I, _P],
         "matmul_s8s8s32_wgmma": [_P, _P, _P, _I, _I, _I, _P],
         "matmul_bf16bf16f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "bias_bn_leaky": {
+        "bias_bn_leaky_bf16": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                               _I, ctypes.c_float, ctypes.c_float, _P],
     },
 }
 

@@ -1,15 +1,16 @@
 """The port's kernels as opaque PyTorch operators.
 
 ``torch.library.custom_op`` registers ``odc_tpu_torch::nms_suppress``,
-``odc_tpu_torch::superstem`` and ``odc_tpu_torch::int8_matmul``.  The
-wrappers (``nms_kernel.suppress``, ``superstem_kernel.superstem``,
-``matmul_kernel.matmul``) check shapes and types and call these operators,
-so eager code and a program captured by ``torch.export`` (the serving
-artifact, ``serve/engine.py``) run one and the same operator.  Tracing sees
-only the fake implementation, which gives the output's shape and type
-(symbolic in the batch); everything that reads a data pointer or launches a
-kernel is in the real implementation below: the alignment checks, the GEMM's
-route, the ``ctypes`` launch and the launch counters.
+``odc_tpu_torch::superstem``, ``odc_tpu_torch::int8_matmul`` and
+``odc_tpu_torch::bias_bn_leaky``.  The wrappers (``nms_kernel.suppress``,
+``superstem_kernel.superstem``, ``matmul_kernel.matmul``,
+``bias_bn_leaky_kernel.bias_bn_leaky``) check shapes and types and call
+these operators, so eager code and a program captured by ``torch.export``
+(the serving artifact, ``serve/engine.py``) run one and the same operator.
+Tracing sees only the fake implementation, which gives the output's shape
+and type (symbolic in the batch); everything that reads a data pointer or
+launches a kernel is in the real implementation below: the alignment
+checks, the GEMM's route, the ``ctypes`` launch and the launch counters.
 
 The real implementation runs the plain PyTorch version for CPU tensors and
 the kernel for CUDA tensors; it never falls back from one to the other.
@@ -25,7 +26,9 @@ from typing import Optional
 
 import torch
 
-from odc_tpu_torch.ops.cuda import matmul_kernel, nms_kernel, superstem_kernel
+from odc_tpu_torch.ops.cuda import (
+    bias_bn_leaky_kernel, matmul_kernel, nms_kernel, superstem_kernel,
+)
 
 
 @torch.library.custom_op("odc_tpu_torch::nms_suppress", mutates_args=())
@@ -96,3 +99,24 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor,
 def _(a, b, path=None):
     return a.new_empty((a.shape[0], b.shape[1]),
                        dtype=matmul_kernel.OUT_DTYPE[a.dtype])
+
+
+@torch.library.custom_op("odc_tpu_torch::bias_bn_leaky", mutates_args=())
+def bias_bn_leaky(x: torch.Tensor, conv_bias: torch.Tensor,
+                  mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
+                  shift: torch.Tensor, eps: float,
+                  negative_slope: float) -> torch.Tensor:
+    """bf16 [..., C] conv output without bias -> bf16 [..., C] after the
+    bias, BN with running statistics, leaky and the cast."""
+    if not _aligned(x):
+        raise ValueError("x must start on a 16-byte boundary")
+    if x.device.type == "cpu":
+        return bias_bn_leaky_kernel.bias_bn_leaky_plain(
+            x, conv_bias, mean, var, weight, shift, eps, negative_slope)
+    return bias_bn_leaky_kernel._launch(
+        x, conv_bias, mean, var, weight, shift, eps, negative_slope)
+
+
+@bias_bn_leaky.register_fake
+def _(x, conv_bias, mean, var, weight, shift, eps, negative_slope):
+    return torch.empty_like(x)
