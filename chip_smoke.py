@@ -13,6 +13,13 @@ just before and read just after:
   batch 256 with every block's output held bitwise against the block run
   on the unfused route, one launch a block, then the kernel's device ms a
   call beside its bound (4 bytes an element) and the plain version's;
+* YOLOv4 — phase yolov4: a YOLOv4-608 call at batch 64 with every block
+  (72 Mish, 35 leaky) held bitwise against the unfused route, one
+  epilogue launch a block; the Mish epilogue (``csrc/bias_bn_mish.cu``)
+  alone at each Mish shape of the call against its bound and the plain
+  version, differing elements counted (0 required); ``make_infer_fn`` on
+  the bulk cell's seeded weights against the plain f32 reference's decoded
+  candidates, judged by the cell's limits, 1 NMS launch a call;
 * serving — YOLOv2-416 bf16 end-to-end inference through ``make_infer_fn``
   (fused superstem -> Darknet-19 -> neck -> head -> decode -> NMS) on a few
   batches, checking that both kernels launched once per call and that the
@@ -508,24 +515,29 @@ def _gap_threshold(conf: torch.Tensor, lo: int, hi: int) -> float:
     return float((s[r] + s[r + 1]) / 2)
 
 
-def _epilogue_call(name, batch):
-    """One ``make_infer_fn`` call of ``name`` (calibrated, bf16, 416 x 416)
+def _epilogue_call(name, batch, hw=HW):
+    """One ``make_infer_fn`` call of ``name`` (calibrated, bf16, ``hw``)
     at ``batch`` in which every conv block's output (the fused kernel's)
     is held bitwise against the same block run on the unfused route from
-    the same input.  Returns the launches of the call and, per distinct
-    block output shape, (count a call, the block, its output)."""
+    the same input.  Returns each epilogue kernel's launches in the call,
+    by name (``bias_bn_leaky`` and ``bias_bn_mish``, each held to the
+    call's blocks of its activation), and, per distinct block output shape
+    and activation, [count a call, the block, its output, its input]."""
     from unittest import mock
 
     from odc_tpu_torch.models.layers import ConvBnLeaky
     from odc_tpu_torch.models.yolov2 import YOLOv2
     from odc_tpu_torch.models.yolov3 import YOLOv3
+    from odc_tpu_torch.models.yolov4 import YOLOv4
     from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import bias_bn_leaky
+    from odc_tpu_torch.ops.cuda.bias_bn_mish_kernel import bias_bn_mish
     from odc_tpu_torch.ops.detect import make_infer_fn
 
-    cls = {"YOLOv2": YOLOv2, "YOLOv3": YOLOv3}[name]
-    model = cls(dtype=torch.bfloat16, device=DEVICE, seed=SEED).eval()
+    cls = {"YOLOv2": YOLOv2, "YOLOv3": YOLOv3, "YOLOv4": YOLOv4}[name]
+    model = cls(dtype=torch.bfloat16, device=DEVICE, seed=SEED,
+                image_size=hw).eval()
     gen = torch.Generator().manual_seed(SEED + 11)
-    images = torch.randint(0, 256, (batch, *HW, 3), generator=gen,
+    images = torch.randint(0, 256, (batch, *hw, 3), generator=gen,
                            dtype=torch.uint8).to(DEVICE)
     _calibrate_bn(model, images[:8], gen)
     infer = make_infer_fn(model, 0.9, 0.5, MAX_KEEP)
@@ -537,30 +549,34 @@ def _epilogue_call(name, batch):
             ref = block.forward(args[0])
         if not torch.equal(out, ref):
             bad.append((tuple(out.shape), int((out != ref).sum())))
-        entry = shapes.setdefault(tuple(out.shape), [0, block, out])
+        entry = shapes.setdefault((tuple(out.shape), block.activation),
+                                  [0, block, out, args[0]])
         entry[0] += 1
 
     hooks = [m.register_forward_hook(check) for m in model.modules()
              if isinstance(m, ConvBnLeaky)]
+    kernels = {"leaky": bias_bn_leaky, "mish": bias_bn_mish}
     try:
-        before = bias_bn_leaky.launches
+        before = {a: k.launches for a, k in kernels.items()}
         with torch.no_grad():
             infer(images)
         sync()
-        launches = bias_bn_leaky.launches - before
+        launches = {a: k.launches - before[a] for a, k in kernels.items()}
     finally:
         for h in hooks:
             h.remove()
     if bad:
         raise AssertionError(f"{name}: fused epilogue != unfused route at "
                              f"(shape, differing elements) {bad}")
-    blocks = sum(n for n, _, _ in shapes.values())
+    blocks = {a: sum(e[0] for (_, act), e in shapes.items() if act == a)
+              for a in kernels}
     if launches != blocks:
-        raise AssertionError(f"{name}: {launches} kernel launches for "
-                             f"{blocks} blocks")
-    print(f"{name} b{batch}: {blocks} blocks, {len(shapes)} shapes, every "
-          f"one bitwise the unfused route; {launches} launches a call")
-    return launches, shapes
+        raise AssertionError(f"{name}: kernel launches {launches} for "
+                             f"blocks {blocks}")
+    print(f"{name} b{batch}: {sum(blocks.values())} blocks, {len(shapes)} "
+          f"shapes, every one bitwise the unfused route; launches a call "
+          f"{launches}")
+    return {f"bias_bn_{a}": n for a, n in launches.items()}, shapes
 
 
 def phase_bias_bn_leaky():
@@ -578,7 +594,7 @@ def phase_bias_bn_leaky():
     for name, batch in (("YOLOv2", BATCH), ("YOLOv3", V3_BATCH)):
         launches, shapes = _epilogue_call(name, batch)
         ms = plain_ms = bound = 0.0
-        for shape, (n, block, y) in sorted(shapes.items()):
+        for (shape, _), (n, block, y, _) in sorted(shapes.items()):
             bn = block.bn
             args = (block.conv.bias, bn.running_mean, bn.running_var,
                     bn.weight, bn.bias, bn.eps, block.negative_slope)
@@ -594,8 +610,108 @@ def phase_bias_bn_leaky():
         print(f"{name} b{batch} a call: kernel {ms:.3f} ms, bound {bound:.3f} "
               f"ms (bytes, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
         out[name] = {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms,
-                     "launches_per_call": launches}
+                     "launches_per_call": launches["bias_bn_leaky"]}
     return out
+
+
+def phase_yolov4():
+    """YOLOv4-608 (CSPDarknet53-Mish, SPP, PANet) at the bulk cell's batch
+    of 64: every block of a ``make_infer_fn`` call (72 Mish, 35 leaky)
+    bitwise the unfused route, one epilogue launch a block; the Mish
+    epilogue alone at each of the call's Mish shapes (a CUDA graph a
+    shape) beside its bound (4 bytes an element) and the plain version's
+    time, with the elements where kernel and plain version differ counted;
+    then ``make_infer_fn`` on the benchmark's seeded, calibrated weights
+    against the plain f32 reference's decoded candidates (TF32 off) at a
+    gap threshold, judged as the bulk cell judges (``reference/yolov4.py``):
+    every number within the cell's limits, 1 NMS launch a call."""
+    import types as _types
+
+    from benchmark import harness
+    from benchmark.reference import calibrate as bcal
+    from odc_tpu_torch.ops.cuda.bias_bn_mish_kernel import (
+        bias_bn_mish, bias_bn_mish_plain, mish_mismatches,
+    )
+    from odc_tpu_torch.ops.cuda.nms_kernel import suppress
+    from odc_tpu_torch.ops.detect import make_infer_fn
+
+    hw = (608, 608)
+    launches, shapes = _epilogue_call("YOLOv4", BATCH, hw)
+    if launches != {"bias_bn_leaky": 35, "bias_bn_mish": 72}:
+        raise AssertionError(f"YOLOv4: epilogue launches {launches}, not 35 "
+                             f"leaky and 72 Mish")
+    ms = plain_ms = bound = 0.0
+    differ = elements = 0
+    for (shape, act), (n, block, _, inp) in sorted(shapes.items()):
+        if act != "mish":
+            continue
+        bn = block.bn
+        args = (block.conv.bias, bn.running_mean, bn.running_var, bn.weight,
+                bn.bias, bn.eps)
+        # The block's conv output without its bias: the kernel's input.
+        with torch.no_grad():
+            x = block._conv_nhwc(inp.to(torch.bfloat16),
+                                 block.conv.weight.to(torch.bfloat16),
+                                 None).contiguous()
+        got, want = bias_bn_mish(x, *args), bias_bn_mish_plain(x, *args)
+        d = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        differ, elements = differ + n * d, elements + n * x.numel()
+        k_ms = graph_ms(lambda: bias_bn_mish(x, *args), 3)
+        p_ms = graph_ms(lambda: bias_bn_mish_plain(x, *args), 1)
+        b_ms = 4 * x.numel() / HBM_BPS * 1e3
+        ms, plain_ms, bound = ms + n * k_ms, plain_ms + n * p_ms, bound + n * b_ms
+        print(f"  mish {shape} x{n}: kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
+              f"({100 * b_ms / k_ms:.1f}%), plain {p_ms:.4f}, {d} of "
+              f"{x.numel()} elements differ")
+        del x, got, want
+    del shapes
+    torch.cuda.empty_cache()
+    print(f"YOLOv4 b{BATCH} Mish epilogue a call: kernel {ms:.3f} ms, bound "
+          f"{bound:.3f} ms (bytes, {100 * bound / ms:.1f}%), plain "
+          f"{plain_ms:.3f} ms; {differ} of {elements} elements differ from "
+          f"the plain version")
+    if differ:
+        raise AssertionError(f"bias_bn_mish: {differ} elements differ")
+    every = mish_mismatches(DEVICE)
+    print(f"the kernel's Mish against F.mish, cast to bf16, over all 2^32 f32 "
+          f"inputs: {every[0]} differ ({every[1]} of them NaN inputs)")
+    if every[0]:
+        raise AssertionError(f"bias_bn_mish: Mish differs at {every} inputs")
+
+    cell = harness.load_json("workloads", "yolov4-608.bulk-b64")
+    cfg = harness.load_json("configs", cell["config"])
+    driver = harness.load_module("drivers", cell["driver"])
+    t = dict(cell["mix"])
+    ctx = _types.SimpleNamespace(cell=cell, cfg=cfg, seed=2**31 + 101,
+                                 device=DEVICE, mark=lambda name: None)
+    sd = driver.prepare(ctx)
+    n = 16
+    images = driver.make_images(n, hw, 2**31 + 102, DEVICE).cpu()
+    ref = driver.reference_candidates(cfg, sd, images, t["reference_block"])
+    thr = bcal.gap_threshold(ref.conf, t["keep_lo"] * n, t["keep_hi"] * n)
+    del ref
+    torch.cuda.empty_cache()
+    model = driver.program_model(cfg, sd, DEVICE)
+    infer = make_infer_fn(model, thr, t["iou_thre"], t["max_keep"], compact=True)
+    before = suppress.launches
+    out = [o.cpu() for o in infer(images.to(DEVICE))]
+    nms_launches = suppress.launches - before
+    del model, infer
+    torch.cuda.empty_cache()
+    numbers = driver.judge_calls(cfg, sd, [images], [out], thr, t)
+    print(f"YOLOv4 b{n} make_infer_fn vs the plain reference: "
+          + ", ".join(f"{k} {numbers[k]:.4g} (limit {v})"
+                      for k, v in cell["limits"].items())
+          + f"; served {numbers['served']:.0f}, reference "
+          f"{numbers['reference']:.0f}; {nms_launches} NMS launch a call")
+    over = {k: numbers[k] for k, v in cell["limits"].items() if numbers[k] > v}
+    if over or nms_launches != 1:
+        raise AssertionError(f"YOLOv4 against the reference: {over}, "
+                             f"{nms_launches} NMS launches")
+    return {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms,
+            "launches_per_call": launches["bias_bn_mish"],
+            "elements_differing": differ,
+            "f32_inputs_differing": every[0]}
 
 
 def phase_e2e():
@@ -4436,6 +4552,8 @@ def main() -> int:
     warp = phase_warp()
     epilogue = phase_bias_bn_leaky()
     torch.cuda.empty_cache()
+    mish_epilogue = phase_yolov4()
+    torch.cuda.empty_cache()
     launches, img_s, model, requests = phase_e2e()
     phase_matmul()
     counters = {"int8_matmul": matmul, "nms_suppress": suppress,
@@ -4557,6 +4675,14 @@ def main() -> int:
              bitwise_unfused=True, **{f"{m}_{k}": v
                                       for m, d in epilogue.items()
                                       for k, v in d.items()}),
+        # The Mish epilogue: its launches counted in phase yolov4's call
+        # (one a Mish block); times and bounds a call of the YOLOv4 bulk
+        # cell's shapes (phase yolov4).
+        dict(name="bias_bn_mish", route="cuda",
+             source="odc_tpu_torch/csrc/bias_bn_mish.cu",
+             replaces=None, launches=mish_epilogue["launches_per_call"],
+             bitwise_unfused=mish_epilogue["elements_differing"] == 0,
+             **{f"YOLOv4_{k}": v for k, v in mish_epilogue.items()}),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s; e2e {img_s:.1f} img/s; "
           f"int8 e2e {int8_img_s:.1f} img/s; train {train_img_s:.1f} img/s; "

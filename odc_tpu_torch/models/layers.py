@@ -214,12 +214,16 @@ def same_padding(n: int, k: int, stride: int):
 
 
 class ConvBnLeaky(nn.Module):
-    """Conv + BatchNorm + LeakyReLU(0.1), NHWC in and out.
+    """Conv + BatchNorm + LeakyReLU(0.1), NHWC in and out; with
+    ``activation="mish"`` conv + BatchNorm + Mish (``x * tanh(softplus(x))``,
+    ``F.mish``), YOLOv4's CBM block.
 
     The conv keeps its bias, like the JAX package and the reference.  The
-    conv runs in ``dtype``; BN, leaky and the cast back to ``dtype`` follow
-    in float32.  ``padding`` is ``"SAME"`` (XLA's rule,
-    :func:`same_padding`, asymmetric at stride 2) or ``"VALID"``.
+    conv runs in ``dtype``; BN, the activation and the cast back to
+    ``dtype`` follow in float32.  ``padding`` is ``"SAME"`` (XLA's rule,
+    :func:`same_padding`, asymmetric at stride 2), ``"VALID"``, or
+    ``"SYMMETRIC"`` (Darknet's: ``k // 2`` on every side at every stride,
+    inside cuDNN's conv, no padded copy).
 
     ``int8_dynamic`` (inference only, ignored in training mode): a 3x3
     conv with at least 128 input channels runs as the JAX package's
@@ -235,10 +239,12 @@ class ConvBnLeaky(nn.Module):
     BN and leaky run on the gathered, replicated map.
 
     Inference in bf16 on the card (:meth:`_fuses_epilogue`): the conv runs
-    without its bias, and the bias add, BN, leaky and the cast run as one
-    hand-written kernel (``ops/cuda/bias_bn_leaky_kernel.py``), bitwise
-    equal to the separate passes.  Training, the CPU, other dtypes, a
-    sharded conv and the int8 conv keep the separate passes."""
+    without its bias, and the bias add, BN, the activation and the cast run
+    as one hand-written kernel (``ops/cuda/bias_bn_leaky_kernel.py``,
+    ``ops/cuda/bias_bn_mish_kernel.py``), bitwise equal to the separate
+    passes.  Training, the CPU, other dtypes, a sharded conv and the int8
+    conv keep the separate passes.  The span around the epilogue is
+    ``bn_leaky`` for a leaky block and ``bn_mish`` for a Mish block."""
 
     def __init__(
         self,
@@ -251,19 +257,25 @@ class ConvBnLeaky(nn.Module):
         stride: int = 1,
         padding: str = "SAME",
         int8_dynamic: bool = False,
+        activation: str = "leaky",
     ):
         super().__init__()
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"padding must be 'SAME' or 'VALID', got "
-                             f"{padding!r}")
+        if padding not in ("SAME", "VALID", "SYMMETRIC"):
+            raise ValueError(f"padding must be 'SAME', 'VALID' or "
+                             f"'SYMMETRIC', got {padding!r}")
+        if activation not in ("leaky", "mish"):
+            raise ValueError(f"activation must be 'leaky' or 'mish', got "
+                             f"{activation!r}")
         self.dtype = dtype
         self.negative_slope = negative_slope
+        self.activation = activation
         self.stride = stride
         self.padding = padding
         self.int8_dynamic = int8_dynamic
-        # Stride 1 SAME (odd kernels) is symmetric and stays in the conv;
-        # other SAME cases pad the NHWC map explicitly in forward.
-        symmetric = padding == "SAME" and stride == 1 and kernel % 2 == 1
+        # SYMMETRIC and stride 1 SAME (odd kernels) stay in the conv; other
+        # SAME cases pad the NHWC map explicitly in forward.
+        symmetric = padding == "SYMMETRIC" or (
+            padding == "SAME" and stride == 1 and kernel % 2 == 1)
         self.pad_input = padding == "SAME" and not symmetric
         self.conv = nn.Conv2d(
             in_features, features, kernel, stride=stride,
@@ -282,6 +294,8 @@ class ConvBnLeaky(nn.Module):
         k = self.conv.kernel_size[0]
         if self.padding == "VALID":
             return (0, 0), (0, 0)
+        if self.padding == "SYMMETRIC":
+            return (k // 2, k // 2), (k // 2, k // 2)
         return (same_padding(h, k, self.stride),
                 same_padding(w, k, self.stride))
 
@@ -290,9 +304,9 @@ class ConvBnLeaky(nn.Module):
                 and self.conv.kernel_size == (3, 3) and x.shape[-1] >= 128)
 
     def _fuses_epilogue(self, x: torch.Tensor) -> bool:
-        """Whether the bias, BN, leaky and the cast run as one kernel: an
-        eval-mode bf16 block on a CUDA input whose conv is neither sharded
-        nor int8."""
+        """Whether the bias, BN, the activation and the cast run as one
+        kernel: an eval-mode bf16 block on a CUDA input whose conv is
+        neither sharded nor int8."""
         return (not self.training and x.is_cuda
                 and self.dtype == torch.bfloat16
                 and getattr(self.conv, "model_shard", None) is None
@@ -311,6 +325,8 @@ class ConvBnLeaky(nn.Module):
                     h = F.pad(h, (0, 0, l, r, t, b))
                 y = apply_layer(self.conv, h, self._conv_nhwc, dt,
                                 with_bias=not fused)
+        if self.activation == "mish":
+            return self._bn_mish(y, fused)
         with span("bn_leaky"):
             if fused:
                 from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import (
@@ -325,6 +341,22 @@ class ConvBnLeaky(nn.Module):
                     self.negative_slope)
             y = self.bn(y)
             return F.leaky_relu(y, self.negative_slope).to(dt)
+
+    def _bn_mish(self, y: torch.Tensor, fused: bool) -> torch.Tensor:
+        """BN, Mish and the cast of a Mish block's conv output ``y`` (without
+        its bias on the fused route)."""
+        with span("bn_mish"):
+            if fused:
+                from odc_tpu_torch.ops.cuda.bias_bn_mish_kernel import (
+                    bias_bn_mish,
+                )
+
+                count("fused_epilogue")
+                bn = self.bn
+                return bias_bn_mish(
+                    y.contiguous(), self.conv.bias, bn.running_mean,
+                    bn.running_var, bn.weight, bn.bias, bn.eps)
+            return F.mish(self.bn(y)).to(self.dtype)
 
     def _conv_nhwc(self, h, w, b):
         return F.conv2d(h.permute(0, 3, 1, 2), w, b, stride=self.stride,

@@ -1,5 +1,5 @@
 """Model registry: the models of the port by the JAX package's names
-(``odc_tpu/models/registry.py``)."""
+(``odc_tpu/models/registry.py``), and YOLOv4, which only the port has."""
 
 from __future__ import annotations
 
@@ -8,11 +8,13 @@ from typing import Any, Dict
 from odc_tpu_torch.models.yolov1 import YOLOv1
 from odc_tpu_torch.models.yolov2 import YOLOv2
 from odc_tpu_torch.models.yolov3 import YOLOv3
+from odc_tpu_torch.models.yolov4 import YOLOv4
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "YOLOv1": YOLOv1,
     "YOLOv2": YOLOv2,
     "YOLOv3": YOLOv3,
+    "YOLOv4": YOLOv4,
 }
 
 

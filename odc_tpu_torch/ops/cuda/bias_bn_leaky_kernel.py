@@ -36,6 +36,29 @@ def bias_bn_leaky_plain(
     return F.leaky_relu(y, negative_slope).to(x.dtype)
 
 
+def check_epilogue_args(x, conv_bias, mean, var, weight, shift) -> None:
+    """Raise unless ``x`` is a contiguous bf16 [..., C] tensor on the CPU or
+    a card with C a positive multiple of 8, and the five vectors contiguous
+    f32 [C] tensors on its device (what the epilogue kernels take)."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bfloat16, got {x.dtype}")
+    if x.dim() < 1 or x.shape[-1] % 8 != 0 or x.shape[-1] == 0:
+        raise ValueError(f"x needs a last dim that is a positive multiple "
+                         f"of 8, got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    c = x.shape[-1]
+    for name, t in (("conv_bias", conv_bias), ("mean", mean), ("var", var),
+                    ("weight", weight), ("shift", shift)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise ValueError(f"{name} must be a float32 [{c}] tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+
+
 def _launch(x, conv_bias, mean, var, weight, shift, eps, negative_slope):
     from odc_tpu_torch.ops.cuda import build
 
@@ -70,23 +93,7 @@ def bias_bn_leaky(
     tensor runs the plain version; a CUDA tensor launches the kernel or
     raises.  ``x`` must start on a 16-byte boundary (the operator checks,
     on every device): the kernel moves 8 channels as one 16-byte load."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"x must be bfloat16, got {x.dtype}")
-    if x.dim() < 1 or x.shape[-1] % 8 != 0 or x.shape[-1] == 0:
-        raise ValueError(f"x needs a last dim that is a positive multiple "
-                         f"of 8, got {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    c = x.shape[-1]
-    for name, t in (("conv_bias", conv_bias), ("mean", mean), ("var", var),
-                    ("weight", weight), ("shift", shift)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
-            raise ValueError(f"{name} must be a float32 [{c}] tensor, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {x.device}")
+    check_epilogue_args(x, conv_bias, mean, var, weight, shift)
     return torch.ops.odc_tpu_torch.bias_bn_leaky(
         x, conv_bias, mean, var, weight, shift, float(eps),
         float(negative_slope))

@@ -30,7 +30,9 @@ BUILD_DIR = _PKG.parent / "build" / "cuda"
 # The warp takes it for its sample positions (slope*o + offset), whose last
 # bit decides tap fractions on images with steep steps; the conv blocks'
 # epilogue for BN's (x - mean) * inv * weight + shift, which ATen rounds op
-# by op.
+# by op.  The Mish epilogue keeps contraction on, as ATen compiles its Mish
+# (expf, log1pf, tanhf inlined from the CUDA math library), and rounds its BN
+# op by op with __fadd_rn / __fmul_rn instead.
 SOURCES: Dict[str, tuple] = {
     "nms_suppress": ("nms_suppress.cu", ["-fmad=false"]),
     "superstem": ("superstem.cu", []),
@@ -38,6 +40,7 @@ SOURCES: Dict[str, tuple] = {
     # -ldl: the wgmma route looks up cuTensorMapEncodeTiled with dlsym.
     "int8_matmul": ("int8_matmul.cu", ["-ldl"]),
     "bias_bn_leaky": ("bias_bn_leaky.cu", ["-fmad=false"]),
+    "bias_bn_mish": ("bias_bn_mish.cu", []),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -63,6 +66,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "bias_bn_leaky": {
         "bias_bn_leaky_bf16": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                _I, ctypes.c_float, ctypes.c_float, _P],
+    },
+    "bias_bn_mish": {
+        "bias_bn_mish_bf16": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                              _I, ctypes.c_float, _P],
+        "bias_bn_mish_table": [ctypes.c_uint, ctypes.c_longlong, _P, _P],
     },
 }
 

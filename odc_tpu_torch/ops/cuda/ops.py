@@ -1,10 +1,11 @@
 """The port's kernels as opaque PyTorch operators.
 
 ``torch.library.custom_op`` registers ``odc_tpu_torch::nms_suppress``,
-``odc_tpu_torch::superstem``, ``odc_tpu_torch::int8_matmul`` and
-``odc_tpu_torch::bias_bn_leaky``.  The wrappers (``nms_kernel.suppress``,
-``superstem_kernel.superstem``, ``matmul_kernel.matmul``,
-``bias_bn_leaky_kernel.bias_bn_leaky``) check shapes and types and call
+``odc_tpu_torch::superstem``, ``odc_tpu_torch::int8_matmul``,
+``odc_tpu_torch::bias_bn_leaky`` and ``odc_tpu_torch::bias_bn_mish``.  The
+wrappers (``nms_kernel.suppress``, ``superstem_kernel.superstem``,
+``matmul_kernel.matmul``, ``bias_bn_leaky_kernel.bias_bn_leaky``,
+``bias_bn_mish_kernel.bias_bn_mish``) check shapes and types and call
 these operators, so eager code and a program captured by ``torch.export``
 (the serving artifact, ``serve/engine.py``) run one and the same operator.
 Tracing sees only the fake implementation, which gives the output's shape
@@ -27,7 +28,8 @@ from typing import Optional
 import torch
 
 from odc_tpu_torch.ops.cuda import (
-    bias_bn_leaky_kernel, matmul_kernel, nms_kernel, superstem_kernel,
+    bias_bn_leaky_kernel, bias_bn_mish_kernel, matmul_kernel, nms_kernel,
+    superstem_kernel,
 )
 
 
@@ -119,4 +121,24 @@ def bias_bn_leaky(x: torch.Tensor, conv_bias: torch.Tensor,
 
 @bias_bn_leaky.register_fake
 def _(x, conv_bias, mean, var, weight, shift, eps, negative_slope):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("odc_tpu_torch::bias_bn_mish", mutates_args=())
+def bias_bn_mish(x: torch.Tensor, conv_bias: torch.Tensor,
+                 mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
+                 shift: torch.Tensor, eps: float) -> torch.Tensor:
+    """bf16 [..., C] conv output without bias -> bf16 [..., C] after the
+    bias, BN with running statistics, Mish and the cast."""
+    if not _aligned(x):
+        raise ValueError("x must start on a 16-byte boundary")
+    if x.device.type == "cpu":
+        return bias_bn_mish_kernel.bias_bn_mish_plain(
+            x, conv_bias, mean, var, weight, shift, eps)
+    return bias_bn_mish_kernel._launch(
+        x, conv_bias, mean, var, weight, shift, eps)
+
+
+@bias_bn_mish.register_fake
+def _(x, conv_bias, mean, var, weight, shift, eps):
     return torch.empty_like(x)

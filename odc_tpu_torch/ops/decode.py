@@ -1,4 +1,4 @@
-"""Box decode for the YOLOv1, YOLOv2 and YOLOv3 heads.
+"""Box decode for the YOLOv1, YOLOv2, YOLOv3 and YOLOv4 heads.
 
 Port of ``odc_tpu/ops/decode.py`` (``Detections``, ``YOLOV2_ANCHORS``,
 ``YOLOV3_ANCHORS``, ``decode_v1``, ``decode_v1_preactivated``,
@@ -8,12 +8,13 @@ units, ``conf = sigmoid(t_o)``, ``cls_prob = softmax``, ``cls_spec = conf *
 cls_prob``.  v1: the reference's sigmoid sizes, ``bw = Wg * sigmoid(tw)``,
 and one softmax over the classes per cell.  v3: three heads with pixel
 anchors, ``bx = (sigmoid(tx) + cx) * stride``, independent class sigmoids,
-flattened to one box axis.  Corners in pixels.
+flattened to one box axis; YOLOv4 is v3 with a grid-sensitivity factor
+per head (``scale_x_y``).  Corners in pixels.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -149,6 +150,7 @@ def decode_v3(
     ys: Sequence[torch.Tensor],
     image_hw: Tuple[int, int],
     anchors: Sequence[Tuple[float, float]] = YOLOV3_ANCHORS,
+    scale_x_y: Optional[Sequence[float]] = None,
 ) -> Detections:
     """Decode YOLOv3's heads ``ys`` = (y32, y16, y8), coarsest first, each
     [B, Hg, Wg, 3, 5 + C], into one ``Detections`` with a flat
@@ -156,7 +158,11 @@ def decode_v3(
     anchors).  ``anchors`` are 9 (w, h) pixel priors, smallest first: the
     coarsest head takes the largest group.  ``bx = (sigmoid(tx) + cx) *
     stride``, ``bw = a_w * exp(tw)``, ``conf = sigmoid(t_o)``, class
-    probabilities independent sigmoids (no softmax)."""
+    probabilities independent sigmoids (no softmax).
+
+    ``scale_x_y`` (YOLOv4's grid sensitivity, one factor ``s`` a head,
+    coarsest first): ``bx = (sigmoid(tx) * s - (s - 1) / 2 + cx) * stride``,
+    and likewise ``by``; ``None`` keeps YOLOv3's centres, op for op."""
     h, w = image_hw
     num_scales = len(ys)
     flat: list = [[] for _ in range(6)]
@@ -176,8 +182,14 @@ def decode_v3(
         cls_prob = torch.sigmoid(y[..., 5:])
 
         cy, cx = _grid_offsets(hg, wg, y.dtype, y.device)
-        bx = (sig_txty[..., 0] + cx) * stride_w
-        by = (sig_txty[..., 1] + cy) * stride_h
+        if scale_x_y is None:
+            bx = (sig_txty[..., 0] + cx) * stride_w
+            by = (sig_txty[..., 1] + cy) * stride_h
+        else:
+            k = float(scale_x_y[s])
+            off = (k - 1.0) / 2.0
+            bx = (sig_txty[..., 0] * k - off + cx) * stride_w
+            by = (sig_txty[..., 1] * k - off + cy) * stride_h
         bw = grp[:, 0] * exp_twth[..., 0]
         bh = grp[:, 1] * exp_twth[..., 1]
         boxes = torch.stack(

@@ -11,7 +11,8 @@ weights are cast to the compute dtype at every call, as flax does).  A
 YOLOv3 runs its own forward too (Darknet-53, the FPN, three heads, decoded
 into one flat box axis of 10647 candidates an image at 416x416); built with
 ``int8_dynamic``, its 32 wide 3x3 convs run as int8 GEMMs of the
-hand-written kernel.  The suppression is one NMS kernel launch for the
+hand-written kernel.  A YOLOv4 runs its own forward (CSPDarknet53, SPP,
+PANet; 22743 candidates an image at 608x608), bf16 only.  The suppression is one NMS kernel launch for the
 whole batch.
 
 The int8 arguments follow the JAX package: ``int8_scales`` runs the full
@@ -65,7 +66,7 @@ def make_infer_fn(
     compact: bool = False,
 ) -> Callable:
     """Build ``infer(images, conf_thre=..., iou_thre=...)`` for a YOLOv1, a
-    YOLOv2 or a YOLOv3.
+    YOLOv2, a YOLOv3 or a YOLOv4.
 
     ``images`` is [B, H, W, 3] uint8 (moved to the model's device).  Returns
     ``(boxes [B, max_keep, 4], conf [B, max_keep], cls_scores

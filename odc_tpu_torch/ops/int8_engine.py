@@ -79,7 +79,15 @@ def _blocks(model) -> List[Tuple[Dict, Dict, Dict, Optional[ModelShard]]]:
     ``shard``: the conv's output channels over the mesh's model axis
     (``parallel/mesh.py::shard_model``), or None.  A sharded block's
     ``kernel`` holds the rank's output channels only; its conv bias and BN
-    vectors are replicated, whole (:func:`_on_slice` cuts them)."""
+    vectors are replicated, whole (:func:`_on_slice` cuts them).  A model
+    without a Darknet-19 backbone and a neck (a YOLOv1, YOLOv3 or YOLOv4)
+    raises ``ValueError``: the engine's graph is the YOLOv2's."""
+    from odc_tpu_torch.models.backbones.darknet19 import Darknet19Backbone
+
+    if not (isinstance(getattr(model, "backbone", None), Darknet19Backbone)
+            and hasattr(model, "neck")):
+        raise ValueError("the int8 engine and its calibration run a YOLOv2 "
+                         f"only (got {type(model).__name__})")
     blocks = [blk for stage in model.backbone.stages for blk in stage]
     out = []
     for blk in blocks + [model.neck]:
