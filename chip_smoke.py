@@ -100,6 +100,13 @@ just before and read just after:
   375x500 VOC JPEGs with the reference-order host augmentation against the
   in-step device augmentation (ms/step, device busy share, 1 warp launch a
   device step and none a host step);
+* CUDA graphs of a whole call — phase graph: ``make_infer_fn`` at the
+  bulk cells' models, seeded weights and batches (YOLOv2-416 b64,
+  YOLOv3-416 b256, YOLOv4-608 b64), every call graphed and eagerly on the
+  same images (a forward hook keeps a call eager): differing elements
+  counted (0 required), ms a call both ways, kernel launches equal a call,
+  and ``graph_captures``/``graph_replays`` (one capture, a replay every
+  call after the second);
 * data parallelism — phase dp: a one-rank NCCL group, the data-parallel
   YOLOv2-416 train step at batch 32 with device augmentation against the
   plain step (f32 losses within rtol 1e-5), bf16 ms/step of both and the
@@ -712,6 +719,90 @@ def phase_yolov4():
             "launches_per_call": launches["bias_bn_mish"],
             "elements_differing": differ,
             "f32_inputs_differing": every[0]}
+
+
+def phase_graph():
+    """A whole ``make_infer_fn`` call replayed as one CUDA graph, at each
+    bulk cell's model, seeded weights and batch: three distinct batches
+    cycled through ``3 + TIMED_CALLS`` calls eagerly (a no-op forward hook
+    keeps a call eager) and then graphed (eager warm-up, capture, replays),
+    outputs back on the host each call.  Every graphed call's outputs
+    against the eager call's on the same batch (differing elements, 0
+    required), each kernel's launches a call equal, one capture and a replay
+    for every call after the second; the median ms a call of the last
+    ``TIMED_CALLS`` both ways."""
+    import types as _types
+
+    from benchmark import harness
+    from benchmark.reference import calibrate as bcal
+    from odc_tpu_torch.ops.cuda import build
+    from odc_tpu_torch.ops.detect import make_infer_fn
+
+    calls = 3 + TIMED_CALLS
+    res, bad = {}, []
+    for name in ("yolov2-416.bulk-b64", "yolov3-416.bulk-b256",
+                 "yolov4-608.bulk-b64"):
+        cell = harness.load_json("workloads", name)
+        cfg = harness.load_json("configs", cell["config"])
+        driver = harness.load_module("drivers", cell["driver"])
+        t = cell["mix"]
+        ctx = _types.SimpleNamespace(cell=cell, cfg=cfg, seed=2**31 + 201,
+                                     device=DEVICE, mark=lambda name: None)
+        model = driver.program_model(cfg, driver.prepare(ctx), DEVICE)
+        hw, n = tuple(cfg["image_size"]), t["batch"]
+        batches = [driver.make_images(n, hw, 2**31 + 202 + i, DEVICE)
+                   for i in range(3)]
+        with torch.no_grad():
+            conf = model.decode(model(batches[0][:16]), hw).conf
+        thr = bcal.gap_threshold(conf, t["keep_lo"] * 16, t["keep_hi"] * 16)
+        del conf
+        infer = make_infer_fn(model, thr, t["iou_thre"], t["max_keep"],
+                              compact=True)
+
+        def run():
+            outs, ms, launches = [], [], set()
+            for i in range(calls):
+                before = [k.launches for k in build.COUNTED]
+                t0 = time.perf_counter()
+                outs.append([o.cpu() for o in infer(batches[i % 3])])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.add(tuple(k.launches - b
+                                   for k, b in zip(build.COUNTED, before)))
+            return outs, statistics.median(ms[-TIMED_CALLS:]), launches
+
+        hook = model.register_forward_pre_hook(lambda *a: None)
+        eager, eager_ms, eager_launches = run()
+        hook.remove()
+        if (infer.graph_captures, infer.graph_replays) != (0, 0):
+            bad.append(f"{name}: a hooked call was graphed")
+        graphed, graphed_ms, graphed_launches = run()
+        differ = sum(int((a != b).sum()) for g, e in zip(graphed, eager)
+                     for a, b in zip(g, e))
+        counts = (infer.graph_captures, infer.graph_replays)
+        row = {"differing_elements": differ,
+               "elements": sum(a.numel() for g in graphed for a in g),
+               "eager_ms": eager_ms, "graphed_ms": graphed_ms,
+               "graph_captures": counts[0], "graph_replays": counts[1],
+               "launches_a_call": {
+                   k.__name__: n for k, n in zip(
+                       build.COUNTED, sorted(graphed_launches)[0]) if n},
+               "kept": int(sum(int(g[-1].sum()) for g in graphed))}
+        print(f"{name} graphed vs eager: {differ} of {row['elements']} "
+              f"elements differ; ms a call {graphed_ms:.3f} graphed, "
+              f"{eager_ms:.3f} eager; captures {counts[0]}, replays "
+              f"{counts[1]}; launches a call {row['launches_a_call']}")
+        if differ or counts != (1, calls - 2) or row["kept"] == 0:
+            bad.append(f"{name}: {row}")
+        if len(eager_launches) != 1 or graphed_launches != eager_launches:
+            bad.append(f"{name}: launches a call {graphed_launches} graphed, "
+                       f"{eager_launches} eager")
+        res[name] = row
+        del model, infer, batches, eager, graphed
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "graph", **res}))
+    if bad:
+        raise AssertionError("graph: " + "; ".join(bad))
+    return res
 
 
 def phase_e2e():
@@ -4554,6 +4645,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mish_epilogue = phase_yolov4()
     torch.cuda.empty_cache()
+    phase_graph()
     launches, img_s, model, requests = phase_e2e()
     phase_matmul()
     counters = {"int8_matmul": matmul, "nms_suppress": suppress,

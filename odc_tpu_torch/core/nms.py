@@ -20,7 +20,6 @@ import torch
 import torch.nn.functional as F
 
 from odc_tpu_torch.ops.cuda.nms_kernel import suppress
-from odc_tpu_torch.utils.metrics import span
 
 
 def _gather_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -36,14 +35,11 @@ def sorted_candidates(
     first: (order [B, k], boxes [B, k, 4], survivors [B, k] bool)."""
     n = boxes.shape[1]
     k = min(max_keep, n)
-    with span("sync", site="sorted_candidates.neg_inf"):
-        neg_inf = torch.tensor(float("-inf"), dtype=score.dtype,
-                               device=score.device)
-    score = torch.where(valid, score, neg_inf)
+    score = torch.where(valid, score, float("-inf"))
     top_score, order = torch.sort(score, dim=-1, descending=True, stable=True)
     order = order[:, :k]
     if k < n:
-        survivors = top_score[:, :k] > neg_inf
+        survivors = top_score[:, :k] > float("-inf")
     else:
         survivors = valid.gather(1, order)
     return order, _gather_rows(boxes, order).contiguous(), survivors.contiguous()

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from odc_tpu_torch.ops.cuda import build
+
 
 def bias_bn_leaky_plain(
     x: torch.Tensor, conv_bias: torch.Tensor, mean: torch.Tensor,
@@ -60,8 +62,6 @@ def check_epilogue_args(x, conv_bias, mean, var, weight, shift) -> None:
 
 
 def _launch(x, conv_bias, mean, var, weight, shift, eps, negative_slope):
-    from odc_tpu_torch.ops.cuda import build
-
     out = torch.empty_like(x)
     c = x.shape[-1]
     m = x.numel() // c
@@ -99,4 +99,4 @@ def bias_bn_leaky(
         float(negative_slope))
 
 
-bias_bn_leaky.launches = 0
+build.counted(bias_bn_leaky)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from odc_tpu_torch.ops.cuda import build
 from odc_tpu_torch.ops.cuda.bias_bn_leaky_kernel import check_epilogue_args
 
 
@@ -43,8 +44,6 @@ def bias_bn_mish_plain(
 
 
 def _launch(x, conv_bias, mean, var, weight, shift, eps):
-    from odc_tpu_torch.ops.cuda import build
-
     out = torch.empty_like(x)
     c = x.shape[-1]
     m = x.numel() // c
@@ -82,7 +81,7 @@ def bias_bn_mish(
         x, conv_bias, mean, var, weight, shift, float(eps))
 
 
-bias_bn_mish.launches = 0
+build.counted(bias_bn_mish)
 
 
 def mish_mismatches(device="cuda", chunk: int = 2**28):
@@ -104,8 +103,6 @@ def mish_table(start: int, count: int, device="cuda") -> torch.Tensor:
     """The kernel's Mish, cast to bf16, of the f32 inputs whose bit patterns
     are ``start`` .. ``start + count - 1`` (mod 2^32), as an int16 [count]
     tensor of bf16 bit patterns on ``device`` (a card)."""
-    from odc_tpu_torch.ops.cuda import build
-
     out = torch.empty(count, dtype=torch.int16, device=device)
     lib = build.load("bias_bn_mish")
     with torch.cuda.device(out.device):

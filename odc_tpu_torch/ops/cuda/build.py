@@ -190,3 +190,16 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+# Every kernel wrapper that counts its launches (:func:`counted`): a CUDA
+# graph replay adds the launches it captured to each of them.
+COUNTED: List = []
+
+
+def counted(wrapper):
+    """Register ``wrapper`` as counting its kernel's launches in
+    ``wrapper.launches`` (starting at 0); returns it."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper

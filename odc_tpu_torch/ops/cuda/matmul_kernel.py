@@ -127,5 +127,5 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     return torch.ops.odc_tpu_torch.int8_matmul(a, b, path)
 
 
-matmul.launches = 0
+build.counted(matmul)
 matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -85,4 +85,4 @@ def suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_thre) -> torch.Tensor
     return torch.ops.odc_tpu_torch.nms_suppress(boxes, valid, iou_thre)
 
 
-suppress.launches = 0
+build.counted(suppress)

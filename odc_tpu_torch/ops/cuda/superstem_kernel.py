@@ -126,4 +126,4 @@ def superstem(
     return torch.ops.odc_tpu_torch.superstem(x_u8, w1, w2)
 
 
-superstem.launches = 0
+build.counted(superstem)

@@ -106,4 +106,4 @@ def warp_affine(
     return _launch(images, m_invs, max_shear)
 
 
-warp_affine.launches = 0
+build.counted(warp_affine)

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from odc_tpu_torch.utils.metrics import span
+from odc_tpu_torch.core.constants import device_constant
 
 # Reference anchors, (width, height) in 13x13-grid units.
 YOLOV2_ANCHORS: Tuple[Tuple[float, float], ...] = (
@@ -78,8 +78,7 @@ def decode_v2(
     """Decode a YOLOv2 head output ``y`` [B, Hg, Wg, A, 5 + C] for an input
     of ``image_hw`` pixels."""
     _, hg, wg, _, _ = y.shape
-    with span("sync", site="decode_v2.anchors"):
-        anchors_arr = torch.tensor(anchors, dtype=y.dtype, device=y.device)
+    anchors_arr = device_constant(anchors, y.dtype, y.device)
     pw = anchors_arr[:, 0]
     ph = anchors_arr[:, 1]
 
@@ -168,11 +167,10 @@ def decode_v3(
     flat: list = [[] for _ in range(6)]
     for s, y in enumerate(ys):
         b, hg, wg, a, _ = y.shape
-        with span("sync", site="decode_v3.anchors"):
-            grp = torch.tensor(
-                anchors[3 * (num_scales - 1 - s) : 3 * (num_scales - s)],
-                dtype=y.dtype, device=y.device,
-            )  # [3, 2] pixels
+        grp = device_constant(
+            anchors[3 * (num_scales - 1 - s) : 3 * (num_scales - s)],
+            y.dtype, y.device,
+        )  # [3, 2] pixels
         stride_h = h / hg
         stride_w = w / wg
 

@@ -15,6 +15,14 @@ hand-written kernel.  A YOLOv4 runs its own forward (CSPDarknet53, SPP,
 PANet; 22743 candidates an image at 608x608), bf16 only.  The suppression is one NMS kernel launch for the
 whole batch.
 
+On a card, a bf16 call whose batch shape and thresholds were seen before
+replays a CUDA graph of the whole call (forward, decode, NMS and the
+outputs) in place of issuing its operations one by one: the host, not
+the card, set the pace of such calls.  The replay runs the same
+kernels on the same data, so its outputs are bitwise the eager call's.
+A function whose calls keep changing shape or threshold (the evaluator's
+native-size YOLOv2) stops capturing after ``GRAPH_KEYS`` of them.
+
 The int8 arguments follow the JAX package: ``int8_scales`` runs the full
 int8 PTQ engine (``ops/int8_engine.py``) in place of the model forward and
 the fused stem, 20 launches of the GEMM kernel a call; ``int8_neck`` keeps
@@ -31,13 +39,22 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.nn.modules import module as _nn_module
 
 from odc_tpu_torch.core.nms import class_offset_boxes, nms_padded
 from odc_tpu_torch.models.backbones.darknet19 import Darknet19Backbone
+from odc_tpu_torch.ops.cuda import build
 from odc_tpu_torch.ops.cuda.superstem_kernel import fold_weights, superstem
 from odc_tpu_torch.ops.int8_engine import scales_tensor, yolov2_int8_forward
 from odc_tpu_torch.ops.quantize import int8_conv_bn_leaky
-from odc_tpu_torch.utils.metrics import count, span
+from odc_tpu_torch.parallel.mesh import model_shards
+from odc_tpu_torch.utils.metrics import count, profiling, span
+
+# The keys (batch shape, image dtype, thresholds) an inference function may
+# capture.  At a key beyond them its calls vary too much for a capture to
+# pay back (each costs a device sync, a garbage collection and a graph
+# held for good), so it drops its graphs and runs eagerly from then on.
+GRAPH_KEYS = 4
 
 
 def stem_weights(model):
@@ -84,7 +101,32 @@ def make_infer_fn(
     or ``"s2d2"``) instead of the model forward.  ``int8_neck``: the 3x3
     neck conv runs as the dynamic-PTQ int8 conv.  Both need a quadrant-neck
     YOLOv2 (a YOLOv3 has no neck: its int8 is the model's own
-    ``int8_dynamic``)."""
+    ``int8_dynamic``).
+
+    CUDA graphs.  A bf16 model on a card (neither int8 argument, not a
+    YOLOv3 built with ``int8_dynamic``, no conv sharded over a model axis)
+    replays a CUDA graph of the whole call for a key of (batch shape, image
+    dtype, ``float(conf_thre)``, ``float(iou_thre)``) it has seen twice:
+    the key's first call runs eagerly (the warm-up), its second captures
+    the call and replays it, later ones copy the images into the graph's
+    input and replay.  Every call returns fresh tensors.  At its
+    ``GRAPH_KEYS + 1``-th key the function drops its graphs and runs every
+    later call eagerly: calls that keep changing shape or threshold, as
+    ``eval/evaluator.py::Detector.detect`` makes at each image's own size,
+    stay eager after a few captures.  The call runs eagerly, exactly as
+    without graphs, while a ``torch.profiler`` records (so every span,
+    module hook and counter of a traced run fires), under ``torch.compile``
+    or ``torch.export``, inside another stream capture, and while any
+    module of the model has a forward hook.  A sharded model stays eager:
+    its forward gathers over the process group.  A replay runs what was
+    captured: a kernel route patched afterwards is not seen (build a new
+    function).  The graphs share one memory pool and one input buffer per
+    batch shape; run a function from one thread and stream at a time.
+    ``infer.graphing`` says whether the function may still capture or
+    replay; ``infer.graph_captures`` and ``infer.graph_replays`` count
+    captures and replays (the capturing call's own run is not a replay);
+    each replay adds its graph's launches to every counting kernel's
+    ``.launches`` (``ops/cuda/build.py::COUNTED``)."""
     if int8_scales is not None or int8_neck:
         # The int8 paths hardcode the Darknet-19/quadrant YOLOv2 graph; a
         # space_to_depth model would silently run the quadrant reorg and
@@ -146,18 +188,96 @@ def make_infer_fn(
             o_keep,
         )
 
+    def run(images, conf_thre, iou_thre):
+        y = forward(images)
+        with span("decode"):
+            det = model.decode(y, images.shape[1:3])
+        with span("nms"):
+            return nms_outputs(det, images.shape[0], conf_thre, iou_thre)
+
+    graphable = (device.type == "cuda" and int8_scales is None
+                 and not int8_neck and model.dtype == torch.bfloat16
+                 and not getattr(model, "int8_dynamic", False)
+                 and not model_shards(model))
+    hook_dicts = [d for m in model.modules()
+                  for d in (m._forward_hooks, m._forward_pre_hooks)]
+    graphs = {}  # key -> _Graph, or None once seen
+    inputs = {}  # (shape, dtype) -> the graphs' input buffer
+    pool = torch.cuda.graph_pool_handle() if graphable else None
+
+    def eager_only() -> bool:
+        return (profiling() or torch.compiler.is_compiling()
+                or torch.cuda.is_current_stream_capturing()
+                or any(hook_dicts) or bool(_nn_module._global_forward_hooks)
+                or bool(_nn_module._global_forward_pre_hooks))
+
+    def graphed(images, conf_thre, iou_thre):
+        """The call's outputs from a graph, or None for an eager call."""
+        conf_thre, iou_thre = float(conf_thre), float(iou_thre)
+        key = (tuple(images.shape), images.dtype, conf_thre, iou_thre)
+        if key not in graphs:
+            if len(graphs) == GRAPH_KEYS:  # the calls vary: eager for good
+                infer.graphing = False
+                graphs.clear()
+                inputs.clear()
+            else:  # the key's warm-up: eager
+                graphs[key] = None
+            return None
+        g = graphs[key]
+        if g is None:
+            static = inputs.get(key[:2])
+            if static is None:
+                static = inputs[key[:2]] = torch.empty_like(images)
+            static.copy_(images)
+            g = graphs[key] = _Graph.capture(
+                lambda: run(static, conf_thre, iou_thre), pool)
+            infer.graph_captures += 1
+        else:
+            inputs[key[:2]].copy_(images)
+            g.count_launches()
+            infer.graph_replays += 1
+        g.graph.replay()
+        return tuple(o.clone() for o in g.outputs)
+
     @torch.no_grad()
     def infer(images, conf_thre=conf_thre, iou_thre=iou_thre):
         with span("infer"):
             images = torch.as_tensor(images, device=device)
             count("images", images.shape[0])
-            y = forward(images)
-            with span("decode"):
-                det = model.decode(y, images.shape[1:3])
-            with span("nms"):
-                return nms_outputs(det, images.shape[0], conf_thre, iou_thre)
+            if infer.graphing and not eager_only():
+                out = graphed(images, conf_thre, iou_thre)
+                if out is not None:
+                    return out
+            return run(images, conf_thre, iou_thre)
 
+    infer.graphing = graphable
+    infer.graph_captures = infer.graph_replays = 0
     return infer
+
+
+class _Graph:
+    """One captured call: the CUDA graph, its output tensors, and the
+    launches of each hand-written kernel it holds."""
+
+    def __init__(self, graph, outputs, launches):
+        self.graph, self.outputs, self.launches = graph, outputs, launches
+
+    @classmethod
+    def capture(cls, fn, pool) -> "_Graph":
+        """Capture ``fn()`` (its tensors in ``pool``); nothing runs yet."""
+        before = [k.launches for k in build.COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            outputs = fn()
+        launches = [(k, k.launches - n)
+                    for k, n in zip(build.COUNTED, before)
+                    if k.launches != n]
+        return cls(graph, outputs, launches)
+
+    def count_launches(self) -> None:
+        for kernel, n in self.launches:
+            kernel.launches += n
 
 
 def make_native_infer_fn(

@@ -241,6 +241,12 @@ class _Tracer:
 _TRACER = _Tracer()
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records: the flag :func:`span` and
+    :func:`count` read."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str, **attrs):
     """Context manager: a span named ``name`` with ``attrs`` while a
     ``torch.profiler`` records; otherwise (and under ``torch.compile`` or

@@ -24,15 +24,10 @@ from odc_tpu_torch.utils import metrics
 HW = (64, 64)
 IMAGES = torch.randint(0, 256, (1, *HW, 3), dtype=torch.uint8,
                        generator=torch.Generator().manual_seed(0))
-# The sync sites a call passes on the CPU.  On the card, YOLOv2's fused
-# superstem normalizes inside the kernel; on the CPU its plain version
-# calls imagenet_normalize, whose two sites the card does not pass.
-NORMALIZE = ["imagenet_normalize.mean", "imagenet_normalize.std"]
-SYNC_SITES = {
-    "yolov2": NORMALIZE + ["decode_v2.anchors", "sorted_candidates.neg_inf"],
-    "yolov3": NORMALIZE + ["decode_v3.anchors"] * 3
-    + ["sorted_candidates.neg_inf"],
-}
+# The sync sites a call passes: none.  The normalize's and decode's
+# constants are made once per device (core/constants.py) and the NMS sort
+# masks with a scalar, so no copy blocks inside a call.
+SYNC_SITES = {"yolov2": [], "yolov3": []}
 
 
 @pytest.fixture(scope="module")
@@ -96,8 +91,6 @@ def test_spans_off_then_on(nets, no_events, name):
             assert parent[sp.id] == "infer", sp.name
     sync = [sp for sp in spans if sp.name == "sync"]
     assert [sp.attrs["site"] for sp in sync] == SYNC_SITES[name]
-    assert [parent[sp.id] for sp in sync] == (
-        ["infer"] * 2 + ["decode"] * (len(sync) - 3) + ["nms"])
 
 
 def test_export_is_unchanged_under_a_profiler(nets, no_events):

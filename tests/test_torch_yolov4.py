@@ -275,8 +275,9 @@ def test_export_captures_the_mish_operator(monkeypatch):
 def test_traced_call_records_the_new_spans(monkeypatch, forced):
     """Under a profiler a bf16 YOLOv4 call records 72 ``bn_mish`` and 35
     ``bn_leaky`` spans (each counting ``fused_epilogue`` once on the fused
-    route, forced here), one ``spp`` span and the call's others: four
-    ``sync`` spans, decode's three anchor copies and the NMS sort's."""
+    route, forced here), one ``spp`` span and the call's others, and no
+    ``sync`` span: decode's anchors and the NMS sort's mask block on no
+    copy."""
     if forced:
         monkeypatch.setattr(ConvBnLeaky, "_fuses_epilogue", lambda self, x: True)
     model = YOLOv4(dtype=BF16, device="cpu", image_size=HW, seed=1)
@@ -290,7 +291,7 @@ def test_traced_call_records_the_new_spans(monkeypatch, forced):
         metrics.reset_spans()
     names = [sp.name for sp in call]
     for name, n in (("bn_mish", 72), ("bn_leaky", 35), ("conv", 107), ("spp", 1),
-                    ("decode", 1), ("nms", 1), ("sync", 4), ("infer", 1)):
+                    ("decode", 1), ("nms", 1), ("sync", 0), ("infer", 1)):
         assert names.count(name) == n, name
     fused = [(sp.counts or {}).get("fused_epilogue", 0) for sp in call
              if sp.name in ("bn_mish", "bn_leaky")]
