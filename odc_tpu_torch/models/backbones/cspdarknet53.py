@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from odc_tpu_torch.models.layers import ConvBnLeaky
+from odc_tpu_torch.models.layers import ConvBnLeaky, Residual
 
 # (output channels, residual blocks) per stage.
 STAGES = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
@@ -36,18 +36,6 @@ def cbm(cin: int, cout: int, k: int, stride: int = 1, **kw) -> ConvBnLeaky:
     """conv + BN + Mish, Darknet's symmetric padding."""
     return ConvBnLeaky(cin, cout, k, stride=stride, padding="SYMMETRIC",
                        activation="mish", **kw)
-
-
-class Residual(nn.Module):
-    """``x + CBM(CBM(x, 1x1 -> mid), 3x3 -> width)``."""
-
-    def __init__(self, width: int, mid: int, **kw):
-        super().__init__()
-        self.reduce = cbm(width, mid, 1, **kw)
-        self.expand = cbm(mid, width, 3, **kw)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.expand(self.reduce(x)) + x
 
 
 class CSPStage(nn.Module):
@@ -61,7 +49,9 @@ class CSPStage(nn.Module):
         self.part_a = cbm(c, branch, 1, **kw)
         self.part_b = cbm(c, branch, 1, **kw)
         self.blocks = nn.Sequential(
-            *(Residual(branch, mid, **kw) for _ in range(repeat)))
+            *(Residual(branch, mid, padding="SYMMETRIC",
+                       activation="mish", **kw)
+              for _ in range(repeat)))
         self.transition = cbm(branch, branch, 1, **kw)
         self.fuse = cbm(2 * branch, c, 1, **kw)
 

@@ -20,7 +20,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from odc_tpu_torch.models.layers import ConvBnLeaky, imagenet_normalize
+from odc_tpu_torch.models.layers import (
+    ConvBnLeaky, Residual, imagenet_normalize,
+)
 
 # The prefix probes ``forward(stop_after=...)`` takes: the stem, then each
 # downsample + residual block.
@@ -34,19 +36,6 @@ _BLOCKS = (
     (512, 8),
     (1024, 4),
 )
-
-
-class Residual(nn.Module):
-    """1x1 reduce -> 3x3 expand -> add the input (the reference's
-    ConvAndResidualLayer)."""
-
-    def __init__(self, features: int, **kw):
-        super().__init__()
-        self.reduce = ConvBnLeaky(features, features // 2, 1, **kw)
-        self.expand = ConvBnLeaky(features // 2, features, 3, **kw)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.expand(self.reduce(x)) + x
 
 
 class Darknet53Backbone(nn.Module):
@@ -68,7 +57,8 @@ class Darknet53Backbone(nn.Module):
                 ConvBnLeaky(cin, features, 3, stride=2,
                             padding=downsample_padding,
                             int8_dynamic=int8_dynamic, **kw),
-                *(Residual(features, int8_dynamic=int8_dynamic, **kw)
+                *(Residual(features, features // 2,
+                           int8_dynamic=int8_dynamic, **kw)
                   for _ in range(repeat)),
             ))
             cin = features

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from odc_tpu_torch.models.layers import (
     TorchBatchNorm, _conv_init_, imagenet_normalize, max_pool_3x3_ceil,
-    max_pool_3x3_same,
+    max_pool_same,
 )
 
 # (ch1x1, ch3x3red, ch3x3, ch5x5red, ch5x5, pool_proj) per inception block.
@@ -88,7 +88,7 @@ class _Pool3x3Same(nn.Module):
     conv keeps torchvision's name ``branch4.1``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return max_pool_3x3_same(x)
+        return max_pool_same(x, 3)
 
 
 class Inception(nn.Module):

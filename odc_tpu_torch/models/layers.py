@@ -380,6 +380,21 @@ class ConvBnLeaky(nn.Module):
         return acc.float() * (sx * sw) + self.conv.bias.float()
 
 
+class Residual(nn.Module):
+    """``x + expand(reduce(x))``: a 1x1 ``ConvBnLeaky`` to ``mid`` channels,
+    then a 3x3 back to ``width`` (Darknet-53's bottleneck, the reference's
+    ConvAndResidualLayer; CSPDarknet53's residual block).  ``kw`` reaches
+    both convs."""
+
+    def __init__(self, width: int, mid: int, **kw):
+        super().__init__()
+        self.reduce = ConvBnLeaky(width, mid, 1, **kw)
+        self.expand = ConvBnLeaky(mid, width, 3, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.expand(self.reduce(x)) + x
+
+
 def extent_mask(shape, eh: torch.Tensor, ew: torch.Tensor) -> torch.Tensor:
     """Per-image valid-extent mask for a padded NHWC batch.
 
@@ -412,9 +427,8 @@ def max_pool_3x3_ceil(x: torch.Tensor) -> torch.Tensor:
     ).permute(0, 2, 3, 1)
 
 
-def max_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
-    """3x3/1 max pool of an NHWC map with SAME (-inf) padding: the pool of
-    Inception branch 4."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 1, padding=1).permute(
-        0, 2, 3, 1
-    )
+def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k / 1 max pool of an NHWC map, ``-inf`` padding ``k // 2`` (SAME
+    at an odd ``k``): Inception branch 4's 3x3, YOLOv4's SPP pools."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, 1, padding=k // 2).permute(
+        0, 2, 3, 1)

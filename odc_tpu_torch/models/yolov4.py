@@ -38,11 +38,12 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from odc_tpu_torch import resolve_device
 from odc_tpu_torch.models.backbones.cspdarknet53 import CSPDarknet53Backbone
-from odc_tpu_torch.models.layers import ConvBnLeaky, _conv_init_
+from odc_tpu_torch.models.layers import (
+    ConvBnLeaky, _conv_init_, max_pool_same,
+)
 from odc_tpu_torch.models.yolov3 import conv1x1, upsample2
 from odc_tpu_torch.ops.decode import Detections, decode_v3
 from odc_tpu_torch.utils.metrics import span
@@ -72,12 +73,6 @@ def five(cin: int, f: int, **kw) -> nn.Sequential:
         layers.append(cbl(cin, out, k, **kw))
         cin = out
     return nn.Sequential(*layers)
-
-
-def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    """k x k / 1 max pool of an NHWC map, ``-inf`` padding ``k // 2``."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), k, 1, padding=k // 2).permute(
-        0, 2, 3, 1)
 
 
 class SPP(nn.Module):

@@ -57,6 +57,27 @@ from odc_tpu_torch.utils.metrics import count, profiling, span
 GRAPH_KEYS = 4
 
 
+def nms_outputs(boxes, conf, cls_spec, conf_thre, iou_thre, max_keep: int,
+                class_wise: bool, compact: bool = True):
+    """The tail of both inference functions: ``boxes`` [B, N, 4] and
+    ``conf`` [B, N] of the flat candidates, ``cls_spec`` their class scores
+    in any shape ending in the classes.  With ``class_wise`` boxes of other
+    argmax classes never suppress each other (``class_offset_boxes``); one
+    ``nms_padded`` launch; ``compact`` turns its outputs into ``(boxes,
+    conf, labels int32, label_scores, keep)``."""
+    b, num_cls = boxes.shape[0], cls_spec.shape[-1]
+    cls_scores = cls_spec.reshape(b, -1, num_cls)
+    sup = (class_offset_boxes(boxes, cls_scores.argmax(-1)) if class_wise
+           else None)
+    out = nms_padded(boxes, conf, cls_scores, conf_thre, iou_thre, max_keep,
+                     suppress_boxes=sup)
+    if not compact:
+        return out
+    o_boxes, o_conf, o_cls, o_keep = out
+    return (o_boxes, o_conf, o_cls.argmax(-1).to(torch.int32),
+            o_cls.max(-1).values, o_keep)
+
+
 def stem_weights(model):
     """Folded superstem weights ``(w1, w2)`` of a YOLOv2's stages 1-2, in
     the model's compute dtype, on its device."""
@@ -163,37 +184,16 @@ def make_infer_fn(
         return model(images, stem_out=superstem(images, w1, w2),
                      neck_override=int8_neck_conv if int8_neck else None)
 
-    def nms_outputs(det, b, conf_thre, iou_thre):
-        num_cls = det.cls_spec.shape[-1]
-        boxes = det.boxes.reshape(b, -1, 4)
-        conf = det.conf.reshape(b, -1)
-        cls_scores = det.cls_spec.reshape(b, -1, num_cls)
-        sup = (
-            class_offset_boxes(boxes, cls_scores.argmax(-1))
-            if class_wise
-            else None
-        )
-        out = nms_padded(
-            boxes, conf, cls_scores, conf_thre, iou_thre, max_keep,
-            suppress_boxes=sup,
-        )
-        if not compact:
-            return out
-        o_boxes, o_conf, o_cls, o_keep = out
-        return (
-            o_boxes,
-            o_conf,
-            o_cls.argmax(-1).to(torch.int32),
-            o_cls.max(-1).values,
-            o_keep,
-        )
-
     def run(images, conf_thre, iou_thre):
         y = forward(images)
         with span("decode"):
             det = model.decode(y, images.shape[1:3])
         with span("nms"):
-            return nms_outputs(det, images.shape[0], conf_thre, iou_thre)
+            b = images.shape[0]
+            return nms_outputs(
+                det.boxes.reshape(b, -1, 4), det.conf.reshape(b, -1),
+                det.cls_spec, conf_thre, iou_thre, max_keep, class_wise,
+                compact)
 
     graphable = (device.type == "cuda" and int8_scales is None
                  and not int8_neck and model.dtype == torch.bfloat16
@@ -354,23 +354,7 @@ def make_native_infer_fn(
         cols = torch.arange(wg, device=device)[None, :] < gw[:, None]
         cell_valid = rows[:, :, None] & cols[:, None, :]  # [B, Hg, Wg]
         conf = torch.where(cell_valid[..., None], det.conf, 0.0).reshape(b, -1)
-        num_cls = det.cls_spec.shape[-1]
-        cls_scores = det.cls_spec.reshape(b, -1, num_cls)
-        sup = (
-            class_offset_boxes(boxes, cls_scores.argmax(-1))
-            if class_wise
-            else None
-        )
-        o_boxes, o_conf, o_cls, o_keep = nms_padded(
-            boxes, conf, cls_scores, conf_thre, iou_thre, max_keep,
-            suppress_boxes=sup,
-        )
-        return (
-            o_boxes,
-            o_conf,
-            o_cls.argmax(-1).to(torch.int32),
-            o_cls.max(-1).values,
-            o_keep,
-        )
+        return nms_outputs(boxes, conf, det.cls_spec, conf_thre, iou_thre,
+                           max_keep, class_wise)
 
     return infer

@@ -237,12 +237,12 @@ def test_foreign_file_is_refused(tmp_path, content):
 
 
 @pytest.mark.parametrize("name", ["YOLOv2", "YOLOv1"])
-def test_reads_a_jax_params_only_file_bitwise(name, ckpt_dir):
+def test_reads_a_jax_params_only_file_bitwise(name, ckpt_dir, jax_ckpts):
     """A params-only file of the JAX package (``save_params``: flax msgpack
     of the ``params`` tree, no BN statistics) restores into the port's
     parameter names bit for bit; a template with other names, or a foreign
     file, is refused."""
-    state = _state(_MODELS[name])
+    state, _ = jax_ckpts(name)
     named = dict(state.model.named_parameters())
     tree = jax_from_train_state(state.state_dict())
     jckpt.save_params(str(ckpt_dir / "params.ckpt"), tree["params"])

@@ -32,7 +32,7 @@ def test_pools_equal_flax(size):
     ref = np.asarray(jlayers.max_pool_3x3_ceil(jnp.asarray(x)))
     assert ceil.shape == ref.shape == (2, size // 2, (size + 1) // 2, 5)
     np.testing.assert_array_equal(ceil, ref)
-    same = tlayers.max_pool_3x3_same(torch.tensor(x)).numpy()
+    same = tlayers.max_pool_same(torch.tensor(x), 3).numpy()
     ref = np.asarray(fnn.max_pool(jnp.asarray(x), (3, 3), (1, 1), "SAME"))
     np.testing.assert_array_equal(same, ref)
 

@@ -31,9 +31,6 @@ process, on the CPU with gloo.
 """
 
 import io
-import os
-import subprocess
-import sys
 
 import pytest
 import torch
@@ -49,12 +46,12 @@ from odc_tpu_torch.config import MeshConfig
 from odc_tpu_torch.data import voc as tvoc
 from odc_tpu_torch.models.convert_jax import _leaves, _tree_kind
 from odc_tpu_torch.parallel import (
-    DataParallel, ModelShard, check_mesh, model_axis_layers, shard_model,
+    DataParallel, ModelShard, check_mesh, shard_model,
 )
 from odc_tpu_torch.train import __main__ as cli
 
 import torch_dp_worker
-from test_torch_parallel import REPO, WORKER_TIMEOUT, _free_port
+from torch_port_helpers import DP_WORKER, free_port, launch_ranks
 
 NAMES = ("YOLOv2", "YOLOv1", "YOLOv3")
 RUNS = [("YOLOv2", 2), ("YOLOv1", 2), ("YOLOv3", 2), ("YOLOv2", 4)]
@@ -149,22 +146,19 @@ def test_qat_accepts_the_model_axis(mesh_runs, capsys):
 # -- gloo processes --------------------------------------------------------
 
 
+# 3x each group's time in a full tier-1 run, 33.1 and 41.2 s (CHANGES.md).
+RANKS_LIMIT_S = {2: 99, 4: 123}
+
+
 def _launch(world: int, out, data_dir):
-    port = qat_port = str(_free_port())
+    port = qat_port = free_port()
     while qat_port == port:  # the QAT CLI's group, after the first CLI's
-        qat_port = str(_free_port())
-    procs = []
-    for rank in range(world):
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
-                   WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                   MASTER_PORT=port, QAT_MASTER_PORT=qat_port,
-                   PYTHONPATH=os.pathsep.join(
-                       [REPO, os.environ.get("PYTHONPATH", "")]))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_dp_worker.py"),
-             str(out), str(data_dir), "model-axis"],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    return procs
+        qat_port = free_port()
+    return launch_ranks(world, [DP_WORKER, str(out), str(data_dir),
+                                "model-axis"],
+                        timeout=RANKS_LIMIT_S[world],
+                        env={"MASTER_PORT": str(port),
+                             "QAT_MASTER_PORT": str(qat_port)})
 
 
 @pytest.fixture(scope="module")
@@ -177,21 +171,10 @@ def mesh_runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("mp")
     data_dir = tvoc.make_synthetic_voc(str(out / "voc"), num_train=4,
                                        num_val=4, seed=6)
-    procs = {w: _launch(w, out, data_dir) for w in (2, 4)}
-    outputs = {}
-    try:
+    with _launch(2, out, data_dir) as small, _launch(4, out, data_dir) as big:
         reference = {name: torch_dp_worker.model_axis_step(name)
                      for name in NAMES}
-        for w, ps in procs.items():
-            outputs[w] = [p.communicate(timeout=WORKER_TIMEOUT) for p in ps]
-    finally:
-        for ps in procs.values():
-            for p in ps:
-                p.kill()
-                p.wait()
-    for w, ps in procs.items():
-        for p, (_, stderr) in zip(ps, outputs[w]):
-            assert p.returncode == 0, stderr.decode()[-3000:]
+        outputs = {2: small.wait(), 4: big.wait()}
     ranks = {w: [torch.load(io.BytesIO(stdout), weights_only=False)
                  for stdout, _ in outputs[w]] for w in (2, 4)}
     return dict(ranks=ranks, cli=ranks[4][0]["cli"], qat=ranks[4][0]["qat"],

@@ -16,11 +16,6 @@ update, leaf by leaf (``tests/test_torch_train.py``'s bound).  YOLOv1
 (per-rank dropout) is held only to equal states across ranks.  The same
 workers then run the training CLI with ``--data-parallel 2``."""
 
-import os
-import socket
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -34,15 +29,10 @@ from odc_tpu_torch.data.host_augment import reference_augment
 from odc_tpu_torch.models.layers import TorchBatchNorm
 
 import torch_dp_worker
+from torch_port_helpers import DP_WORKER, free_port, launch_ranks
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER_TIMEOUT = 300
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+# 3x the two ranks' 29.8 s in a full tier-1 run (CHANGES.md).
+RANKS_LIMIT_S = 89
 
 
 # -- the pipeline's process slices (single process) ---------------------------
@@ -122,7 +112,7 @@ def one_rank_group():
     from odc_tpu_torch.parallel import maybe_initialize_distributed
 
     dp = maybe_initialize_distributed(
-        device="cpu", init_method=f"tcp://localhost:{_free_port()}",
+        device="cpu", init_method=f"tcp://localhost:{free_port()}",
         world_size=1, rank=0)
     yield dp
     dist.destroy_process_group()
@@ -219,37 +209,18 @@ def test_qat_step_in_a_one_rank_group(one_rank_group):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    """Launch the two workers once (``torchrun``'s environment, a free
-    port), each with its own deadline; return their results, stdouts and
-    output folder, and the one-process reference run."""
+    """Launch the two workers once; meanwhile run the one-process
+    reference.  Return their results, stdouts and output folder, and the
+    reference run."""
     out = tmp_path_factory.mktemp("dp")
-    port = str(_free_port())
-    procs = []
-    for rank in (0, 1):
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
-                   WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port,
-                   PYTHONPATH=os.pathsep.join(
-                       [REPO, os.environ.get("PYTHONPATH", "")]))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_dp_worker.py"),
-             str(out), str(out / "voc")],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    outputs = []
     try:
-        reference = torch_dp_worker.yolov2_steps()  # meanwhile, one process
-        for p in procs:
-            outputs.append(p.communicate(timeout=WORKER_TIMEOUT))
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    try:
-        for p, (stdout, stderr) in zip(procs, outputs):
-            assert p.returncode == 0, stderr[-3000:]
+        with launch_ranks(2, [DP_WORKER, str(out), str(out / "voc")],
+                          timeout=RANKS_LIMIT_S) as workers:
+            reference = torch_dp_worker.yolov2_steps()
+            outputs = workers.wait()
         ranks = [torch.load(out / f"rank{r}.pt") for r in (0, 1)]
-        yield dict(ranks=ranks, stdout=[o[0] for o in outputs], out=out,
-                   reference=reference)
+        yield dict(ranks=ranks, stdout=[o.stdout.decode() for o in outputs],
+                   out=out, reference=reference)
     finally:  # rank 0's update alone is 270 MB; checkpoints 175 MB each
         for path in [*out.glob("rank*.pt"), *out.glob("ckpts/**/*.ckpt")]:
             path.unlink()

@@ -67,6 +67,17 @@ def _network(kind: str):
     return model, variables, images, scales
 
 
+@functools.lru_cache(maxsize=None)
+def _calibrated_heads(stem: str):
+    """(engine head, twin head) of the calibrated network for ``stem``,
+    computed once for the tests that read them."""
+    model, _, images, scales = _network("calibrated")
+    x = torch.tensor(images)
+    with torch.no_grad():
+        return (te.yolov2_int8_forward(model, x, scales=scales, stem=stem),
+                tq.yolov2_qat_forward(model, x, scales, stem=stem))
+
+
 @functools.partial(jax.jit, static_argnums=3)
 def _jax_twin(variables, images, scales, stem):
     return jq.yolov2_qat_forward(variables, images, scales, stem=stem)
@@ -208,12 +219,9 @@ def test_twin_matches_engine(stem):
     Measured: s2d max 0.564 against 0.845, mean 0.0046 against 0.0918;
     plain 0.656 against 0.938, mean 0.0400 against 0.1006."""
     model, _, images, scales = _network("calibrated")
-    x = torch.tensor(images)
     with torch.no_grad():
-        ref = model(x).numpy()
-        eng = te.yolov2_int8_forward(model, x, scales=scales,
-                                     stem=stem).numpy()
-        qat = tq.yolov2_qat_forward(model, x, scales, stem=stem).numpy()
+        ref = model(torch.tensor(images)).numpy()
+    eng, qat = (y.numpy() for y in _calibrated_heads(stem))
     err_eng = np.abs(eng - ref)
     assert np.abs(qat - ref).max() <= 1.5 * err_eng.max() + 1e-4
     d = np.abs(qat - eng)
@@ -233,10 +241,8 @@ def test_twin_head_and_gradients_match_jax(stem):
     leaf check catches: an ``amax`` pool, which splits the gradient between
     tied maxima where XLA gives it to the first (0.34-0.39), the s2d stem
     without its bf16 roundings (0.44), no STE (1.0)."""
-    model, variables, images, scales = _network("calibrated")
-    with torch.no_grad():
-        got = tq.yolov2_qat_forward(model, torch.tensor(images), scales,
-                                    stem=stem).numpy()
+    _, variables, images, scales = _network("calibrated")
+    got = _calibrated_heads(stem)[1].numpy()
     ref = _jax_twin(variables, images, scales.numpy(), stem)
     assert _rel(got, ref) < 0.15
 
@@ -270,8 +276,7 @@ def test_exact_mode_is_the_engine(stem):
     (the QAT steps below) they are finite and move the engine's loss."""
     model, _, images, scales = _network("calibrated")
     x = torch.tensor(images)
-    with torch.no_grad():
-        eng = te.yolov2_int8_forward(model, x, scales=scales, stem=stem)
+    eng = _calibrated_heads(stem)[0]
     w = torch.tensor(np.random.default_rng(6).normal(
         size=eng.shape).astype(np.float32))
 

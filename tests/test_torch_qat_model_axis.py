@@ -33,9 +33,6 @@ this box:
 """
 
 import io
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -57,9 +54,10 @@ from odc_tpu_torch.parallel import DataParallel, ModelShard, model_axis_layers
 from odc_tpu_torch.train import TrainState, finetune_qat
 
 import torch_dp_worker
-from test_torch_parallel import REPO, WORKER_TIMEOUT, _free_port
-from torch_port_helpers import fresh_yolov2
+from torch_port_helpers import DP_WORKER, fresh_yolov2, launch_ranks
 
+# 3x the two ranks' 34.8 s in a full tier-1 run (CHANGES.md).
+RANKS_LIMIT_S = 104
 RUNS = [("s2d", stop) for stop in torch_dp_worker.QAT_STOPS] + [
     ("plain", None)]
 MODES = ("exact", "twin")
@@ -93,26 +91,10 @@ def qat_runs(tmp_path_factory):
     arrays = torch_dp_worker.qat_arrays()
     scales = te.calibrate(model, torch.from_numpy(arrays[0]))
     np.save(out / "scales.npy", scales.numpy())
-    port = str(_free_port())
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
-                   WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port,
-                   PYTHONPATH=os.pathsep.join(
-                       [REPO, os.environ.get("PYTHONPATH", "")]))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_dp_worker.py"),
-             str(out), str(out), "qat"],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    try:
+    with launch_ranks(2, [DP_WORKER, str(out), str(out), "qat"],
+                      timeout=RANKS_LIMIT_S) as workers:
         reference = _jax_twin_step(model, arrays, scales.numpy())
-        outputs = [p.communicate(timeout=WORKER_TIMEOUT) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    for p, (_, stderr) in zip(procs, outputs):
-        assert p.returncode == 0, stderr.decode()[-3000:]
+        outputs = workers.wait()
     return dict(
         ranks=[torch.load(io.BytesIO(o), weights_only=False)
                for o, _ in outputs],

@@ -6,10 +6,7 @@ without device augmentation), eval steps, the state bridge, and the epoch loop
 
 import copy
 import json
-import os
 import pickle
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -42,13 +39,15 @@ from odc_tpu_torch.train import __main__ as cli
 from odc_tpu_torch.train import checkpoint
 from odc_tpu_torch.train import schedule as tschedule
 from odc_tpu_torch.train import trainer as ttrainer
-from torch_port_helpers import fresh_yolov2, replay_params
+from torch_port_helpers import fresh_yolov2, replay_params, run_python
 
 HW = (96, 96)
 B, M = 4, 8
 STEPS = 3
 MOMENTUM, WD = 0.9, 5e-4
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# 3x each CLI child's time in a full tier-1 run, 11.7, 7.7 and 13.5 s
+# (CHANGES.md).
+V2_CLI_LIMIT_S, V1_CLI_LIMIT_S, QAT_CLI_LIMIT_S = 35, 23, 40
 
 
 # -- BatchNorm and schedule -------------------------------------------------
@@ -664,17 +663,16 @@ def test_cli_qat_on_the_cpu(tmp_path):
     checkpoint.save(str(ckpt), ttrainer.TrainState(fresh_yolov2()))
     make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=4)
     try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
-             "--model", "YOLOv2", "--image-size", "64",
-             "--batch-size", "4", "--qat", str(ckpt), "--qat-epochs", "1",
-             "--augment", "device",
-             "--dataset-dir", str(tmp_path / "voc"),
-             "--ckpt-root", str(tmp_path / "ckpts")],
-            cwd=REPO, capture_output=True, text=True, timeout=600,
-        )
-        assert proc.returncode == 0, proc.stderr[-2000:]
-        assert "QAT Epoch: 1 -->" in proc.stdout
+        stdout = run_python(
+            "-m", "odc_tpu_torch.train", "--device", "cpu",
+            "--model", "YOLOv2", "--image-size", "64",
+            "--batch-size", "4", "--qat", str(ckpt), "--qat-epochs", "1",
+            "--augment", "device",
+            "--dataset-dir", str(tmp_path / "voc"),
+            "--ckpt-root", str(tmp_path / "ckpts"),
+            timeout=QAT_CLI_LIMIT_S,
+        ).stdout.decode()
+        assert "QAT Epoch: 1 -->" in stdout
         (run_dir,) = (tmp_path / "ckpts" / "YOLOv2").iterdir()
         assert {p.name for p in run_dir.iterdir()} == {
             "best_qat_model.ckpt", "final_qat_model.ckpt", "int8_scales.npy",
@@ -762,17 +760,16 @@ def test_cli_trains_on_the_cpu(tmp_path):
     """``python -m odc_tpu_torch.train`` end to end in a subprocess, on a
     synthetic VOC of four train and four val images."""
     make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=4)
-    proc = subprocess.run(
-        [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
-         "--model", "YOLOv2",
-         "--epochs", "1", "--batch-size", "4",
-         "--image-size", "64", "--augment", "device",
-         "--dataset-dir", str(tmp_path / "voc"),
-         "--ckpt-root", str(tmp_path / "ckpts")],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "Epoch: 1 -->" in proc.stdout and "done; checkpoints in" in proc.stdout
+    stdout = run_python(
+        "-m", "odc_tpu_torch.train", "--device", "cpu",
+        "--model", "YOLOv2",
+        "--epochs", "1", "--batch-size", "4",
+        "--image-size", "64", "--augment", "device",
+        "--dataset-dir", str(tmp_path / "voc"),
+        "--ckpt-root", str(tmp_path / "ckpts"),
+        timeout=V2_CLI_LIMIT_S,
+    ).stdout.decode()
+    assert "Epoch: 1 -->" in stdout and "done; checkpoints in" in stdout
     (run_dir,) = (tmp_path / "ckpts" / "YOLOv2").iterdir()
     assert {p.name for p in run_dir.iterdir()} == {
         "train_config.json", "metrics.jsonl", "training_result.pkl",
@@ -785,17 +782,16 @@ def test_cli_trains_yolov1_on_the_cpu(tmp_path):
     one epoch with device augmentation and dropout, and scores mAP with
     ``--eval-map-every`` (four train and four val images)."""
     make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=4)
-    proc = subprocess.run(
-        [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
-         "--model", "YOLOv1", "--epochs", "1",
-         "--image-size", "64", "--batch-size", "4", "--eval-map-every", "1",
-         "--augment", "device",
-         "--dataset-dir", str(tmp_path / "voc"),
-         "--ckpt-root", str(tmp_path / "ckpts")],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "Epoch: 1 --> mAP@.5:" in proc.stdout
+    stdout = run_python(
+        "-m", "odc_tpu_torch.train", "--device", "cpu",
+        "--model", "YOLOv1", "--epochs", "1",
+        "--image-size", "64", "--batch-size", "4", "--eval-map-every", "1",
+        "--augment", "device",
+        "--dataset-dir", str(tmp_path / "voc"),
+        "--ckpt-root", str(tmp_path / "ckpts"),
+        timeout=V1_CLI_LIMIT_S,
+    ).stdout.decode()
+    assert "Epoch: 1 --> mAP@.5:" in stdout
     (run_dir,) = (tmp_path / "ckpts" / "YOLOv1").iterdir()
     rows = [json.loads(line) for line in
             (run_dir / "metrics.jsonl").read_text().splitlines()]

@@ -11,9 +11,6 @@ seeded init, BN calibrated on eight images, carried into JAX)."""
 
 import copy
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -48,10 +45,11 @@ from odc_tpu_torch.models.convert_jax import (
 from odc_tpu_torch.ops.assign import YoloTargets
 from odc_tpu_torch.train import trainer as ttrainer
 from test_torch_yolov3 import v3_setup
-from torch_port_helpers import gap_threshold
+from torch_port_helpers import gap_threshold, run_python
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = (64, 64)
+# 3x the CLI child's 19.5 s in a full tier-1 run (CHANGES.md).
+CLI_LIMIT_S = 58
 _V3 = TRAIN_CONFIG["YOLOv3"]["VOC2012"]
 LAMBDAS = (_V3.lambda_xy, _V3.lambda_wh, _V3.lambda_conf, _V3.lambda_noobj,
            _V3.lambda_cls)
@@ -477,16 +475,15 @@ def test_cli_trains_yolov3_on_the_cpu(tmp_path, ckpt_root):
     written."""
     make_synthetic_voc(str(tmp_path / "voc"), num_train=4, num_val=2,
                        image_hw=(96, 128), seed=4)
-    proc = subprocess.run(
-        [sys.executable, "-m", "odc_tpu_torch.train", "--device", "cpu",
-         "--model", "YOLOv3", "--epochs", "1", "--batch-size", "4",
-         "--image-size", "64", "--dtype", "float32", "--augment", "device",
-         "--dataset-dir", str(tmp_path / "voc"),
-         "--ckpt-root", str(ckpt_root)],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "Epoch: 1 -->" in proc.stdout and "nan" not in proc.stdout.lower()
+    stdout = run_python(
+        "-m", "odc_tpu_torch.train", "--device", "cpu",
+        "--model", "YOLOv3", "--epochs", "1", "--batch-size", "4",
+        "--image-size", "64", "--dtype", "float32", "--augment", "device",
+        "--dataset-dir", str(tmp_path / "voc"),
+        "--ckpt-root", str(ckpt_root),
+        timeout=CLI_LIMIT_S,
+    ).stdout.decode()
+    assert "Epoch: 1 -->" in stdout and "nan" not in stdout.lower()
     (run_dir,) = (ckpt_root / "YOLOv3").iterdir()
     names = {p.name for p in run_dir.iterdir()}
     assert {"final_model.ckpt", "best_model.ckpt", "metrics.jsonl",

@@ -15,7 +15,8 @@ update, digests of the state after step 2), and digests of the state after
 one YOLOv1 step; then runs the training CLI (its default model, YOLOv1) with
 ``--data-parallel 2`` for one epoch.
 The test imports :func:`yolov2_steps` to run the same steps in one
-process.
+process.  A rank's intra-op threads are ``OMP_NUM_THREADS``'s
+(``tests/torch_port_helpers.py::Children`` splits its test's budget).
 
 The YOLOv2 runs in float64 (parameters and compute): in float32 a random
 YOLOv2's step is chaotic at this size (the one-process run alone moves its
@@ -253,7 +254,6 @@ def _model_axis_run(out_dir: str, data_dir: str) -> dict:
 
     dp = make_mesh(maybe_initialize_distributed(device="cpu"), 2)
     world = dp.world_size * dp.model_size
-    torch.set_num_threads(4 // world)  # the two launches run side by side
     names = ("YOLOv2", "YOLOv1", "YOLOv3") if world == 2 else ("YOLOv2",)
     # Each rank starts from other weights: shard_model must replace them
     # with global rank 0's.
@@ -411,7 +411,6 @@ def qat_model_axis(out_dir: str) -> dict:
     from odc_tpu_torch.train import TrainState
 
     dp = make_mesh(maybe_initialize_distributed(device="cpu"), 2)
-    torch.set_num_threads(2)
     scales = torch.from_numpy(np.load(os.path.join(out_dir, "scales.npy")))
     images = torch.from_numpy(qat_arrays()[0])
     model = qat_model()
@@ -489,7 +488,6 @@ def main_qat(out_dir: str) -> None:
 
 
 def main(out_dir: str, data_dir: str) -> None:
-    torch.set_num_threads(2)
     from odc_tpu_torch.parallel import maybe_initialize_distributed
     from odc_tpu_torch.train.__main__ import main as cli_main
 

@@ -1,11 +1,21 @@
 """Shared fixtures for the ``tests/test_torch_*.py`` parity tests: one JAX
 YOLOv2 init carried into the PyTorch port through the weight bridge, the
 port's own seeded YOLOv2 for the int8 tests, and the JAX augmentation's
-random draws replayed as the port's parameters.  Importing it caps
-PyTorch's intra-op threads (below)."""
+random draws replayed as the port's parameters; and the one way those tests
+start a Python child (:func:`launch_ranks`, :func:`run_python`).  Importing
+it caps PyTorch's intra-op threads (below)."""
 
+import collections
+import contextlib
 import copy
 import functools
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
 
 import numpy as np
 
@@ -22,11 +32,121 @@ from odc_tpu_torch.models.layers import TorchBatchNorm
 from odc_tpu_torch.models.yolov2 import YOLOv2
 from odc_tpu_torch.ops import augment as taug
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DP_WORKER = os.path.join(REPO, "tests", "torch_dp_worker.py")  # one rank
+
 # The tests run under pytest-xdist, several worker processes on one host,
 # and PyTorch starts one intra-op thread per core in each, which then
 # contend for the cores.  Two threads a worker ran tests/test_torch_*.py in
-# 176 s where the default took 237 s (six workers, eight cores).
-torch.set_num_threads(2)
+# 176 s where the default took 237 s (six workers, eight cores).  A child
+# process a test starts shares its worker's budget (:class:`Children`).
+THREADS = 2
+torch.set_num_threads(THREADS)
+
+Output = collections.namedtuple("Output", "stdout stderr")  # bytes each
+
+
+def free_port() -> int:
+    """A TCP port of this host that no socket held when drawn."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Children:
+    """Python processes (``python *argv``) started together from the
+    repository's root, each in a session of its own, with ``REPO`` on the
+    path and ``THREADS // len(argvs)`` intra-op threads (at least one) in
+    ``OMP_NUM_THREADS`` and ``MKL_NUM_THREADS``: children that run side by
+    side split their worker's budget (no child imports JAX, whose thread
+    pool would need a setting of its own).
+
+    :meth:`wait` waits under one limit of ``timeout`` seconds from the
+    start; leaving the ``with`` block, passed or failed, kills and reaps
+    every child still running."""
+
+    def __init__(self, argvs, timeout: float, envs=None, stdin=None):
+        self.argvs, self.timeout = argvs, timeout
+        self.start = time.monotonic()
+        threads = str(max(1, THREADS // len(argvs)))
+        self.procs, self.outputs, self.drainers = [], [None] * len(argvs), []
+        try:
+            for i, env in enumerate(envs or [{}] * len(argvs)):
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, *argvs[i]], cwd=REPO,
+                    env={**os.environ, "OMP_NUM_THREADS": threads,
+                         "MKL_NUM_THREADS": threads,
+                         "PYTHONPATH": os.pathsep.join(
+                             [REPO, os.environ.get("PYTHONPATH", "")]),
+                         **env},
+                    stdin=(subprocess.DEVNULL if stdin is None
+                           else subprocess.PIPE),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    start_new_session=True))
+                # Pipes drained as they fill: a child that writes much to
+                # one never waits for the others to exit.
+                self.drainers.append(threading.Thread(
+                    target=self._drain, args=(i, stdin), daemon=True))
+                self.drainers[-1].start()
+        except BaseException:
+            self.close()
+            raise
+
+    def _drain(self, i: int, stdin) -> None:
+        self.outputs[i] = Output(*self.procs[i].communicate(stdin))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        for proc in self.procs:  # its session: what it started holds pipes
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        for drainer in self.drainers:
+            drainer.join()
+
+    def wait(self) -> list:
+        """Every child's :data:`Output`, once all exited 0.  Fails with the
+        standard error's tail of the first child that exited otherwise, or
+        of one still running at the limit; a child's failure does not wait
+        for the others (ranks of a group hang in a collective without it)."""
+        deadline = self.start + self.timeout
+        while (any(p.poll() is None for p in self.procs)
+               and not any(p.poll() for p in self.procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        failed = [i for i, p in enumerate(self.procs) if p.poll()]
+        late = [i for i, p in enumerate(self.procs) if p.poll() is None]
+        self.close()
+        for i in failed or late:
+            argv = " ".join(a[:80] for a in self.argvs[i])
+            why = (f"exited {self.procs[i].returncode}" if failed else
+                   f"still ran after its {self.timeout} s limit")
+            tail = self.outputs[i].stderr.decode(errors="replace")[-3000:]
+            raise AssertionError(f"child {i} (python {argv}) {why}:\n{tail}")
+        return self.outputs
+
+
+def launch_ranks(world: int, argv, timeout: float, env=None) -> Children:
+    """``world`` ranks of one gloo group, each ``python *argv`` in
+    ``torchrun``'s environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``
+    and ``MASTER_ADDR``/``MASTER_PORT`` on a free port), then ``env``."""
+    port = str(free_port())
+    envs = [{"RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
+             "MASTER_ADDR": "localhost", "MASTER_PORT": port, **(env or {})}
+            for r in range(world)]
+    return Children([argv] * world, timeout, envs)
+
+
+def run_python(*argv, timeout: float, stdin: bytes = None) -> Output:
+    """``python *argv`` in a child (:class:`Children`), ``stdin`` handed
+    over; its :data:`Output` once it exited 0."""
+    with Children([argv], timeout, stdin=stdin) as child:
+        return child.wait()[0]
 
 
 @functools.lru_cache(maxsize=1)
